@@ -209,7 +209,12 @@ def test_entry_point_without_cuda_raises(monkeypatch):
 
 
 def test_refinement_waits_for_slice_2():
+    """SAM refinement is ported: turning it on builds the SAM model instead
+    of raising (tests/test_torch_refinement.py drives it)."""
     _, tcfg = _cfgs()
-    cfg = dataclasses.replace(tcfg, refinement=RefinementConfig(use_refinement=True))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TrackingAnything(cfg=cfg, device="cpu")
+    cfg = dataclasses.replace(
+        tcfg, refinement=RefinementConfig(use_refinement=True),
+        sam=dataclasses.replace(tcfg.sam, model_type="vit_b", image_size=128, window_size=7,
+                                vit_dims=(("vit_b", 64, 2, 2, (1,)),)))
+    ta = TrackingAnything(cfg=cfg, device="cpu")
+    assert ta.xmem.sam is ta.sam is not None

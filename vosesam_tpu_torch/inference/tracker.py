@@ -7,9 +7,10 @@ Reference: tracker/base_tracker.py BaseTracker (:30-212). The host-side
       (mask (H, W) uint8, logits, painted_image, scores)   (:97-212)
   clear_memory()                                            (:1092-1096)
 
-This slice runs XMem without SAM refinement (the reference's config 1,
-`RefinementConfig(use_refinement=False)`); refinement, `track_batch` and the
-chunked path come with the SAM slice. The `live_objects` hint bookkeeping is
+With `RefinementConfig(use_refinement=True)` every propagation frame is
+refined by SAM after the XMem step (the annotation frame skips SAM, as the
+reference does); `track_batch` runs the chunked path
+(`inference/chunked.py`). The `live_objects` hint bookkeeping is
 the JAX package's, because it decides which memory-read kernel runs: the
 annotation frame reads with no hint (per-object kernel), propagation frames
 with the seeded object count (shared-validity kernel), and every frame after
@@ -27,32 +28,44 @@ import torch
 from vosesam_tpu_torch.config import FrameworkConfig
 from vosesam_tpu_torch.device import DeviceLike, resolve_device
 from vosesam_tpu_torch.inference import core
-from vosesam_tpu_torch.inference.refinement import masks_from_prob, xmem_object_scores
+from vosesam_tpu_torch.inference.chunked import track_chunk
+from vosesam_tpu_torch.inference.refinement import (
+    masks_from_prob,
+    refine_masks,
+    xmem_object_scores,
+)
 from vosesam_tpu_torch.memory.rings import grow_objects
+from vosesam_tpu_torch.models.sam import predictor
 from vosesam_tpu_torch.models.xmem.network import XMem
 from vosesam_tpu_torch.utils.mask_mapper import MaskMapper
 from vosesam_tpu_torch.viz.painter import paint_indexed
 
 
-def _require_xmem_only(cfg: FrameworkConfig) -> None:
-    if cfg.refinement.use_refinement:
-        raise NotImplementedError("SAM refinement: slice 2")
-
-
 def track_frame(
     net: XMem,
+    sam: Optional[predictor.Sam],
     state: core.TrackerState,
     frame: torch.Tensor,              # (H, W, 3) uint8 RGB
     cfg: FrameworkConfig,
 ):
-    """One propagation frame. Returns (state, indexed_mask (H, W) int32,
-    logits (1+O, H, W), scores (O,), painted (H, W, 3) uint8)."""
-    _require_xmem_only(cfg)
+    """One propagation frame: the XMem step, then (with refinement on) one
+    SAM encode and `refine_masks`. Returns (state, indexed_mask (H, W)
+    int32, logits (1+O, H, W), scores (O,), painted (H, W, 3) uint8,
+    used_sam (O,) bool or None without refinement)."""
     o = cfg.xmem.max_objects
     state, prob, logits = core.step(net, state, frame, cfg)
-    _, indexed = masks_from_prob(prob, o)
+    masks, indexed = masks_from_prob(prob, o)
     scores = xmem_object_scores(prob[1:])
-    return state, indexed, logits, scores, paint_indexed(frame, indexed, o)
+    if cfg.refinement.use_refinement:
+        if sam is None:
+            raise ValueError("refinement enabled but no SAM model given")
+        emb = predictor.encode_image(sam, frame[None], cfg.sam)
+        res = refine_masks(sam, emb, masks[None], logits[None, 1:], scores[None],
+                           state.memory.obj_valid[None], cfg)
+        indexed, scores, used_sam = res.indexed[0], res.scores[0], res.used_sam[0]
+    else:
+        used_sam = None
+    return state, indexed, logits, scores, paint_indexed(frame, indexed, o), used_sam
 
 
 def track_first_frame(
@@ -80,10 +93,11 @@ class Tracker:
         net: XMem,
         cfg: FrameworkConfig,
         device: DeviceLike = None,
+        sam: Optional[predictor.Sam] = None,
     ) -> None:
-        _require_xmem_only(cfg)
         self.device = resolve_device(device)
         self.net = net
+        self.sam = sam
         self.cfg = cfg
         self.mapper = MaskMapper()
         self.state: Optional[core.TrackerState] = None
@@ -96,6 +110,9 @@ class Tracker:
         self._frames_tracked = 0
         self._mid_video_add = False
         self._cfg_cache: dict = {}
+        # per object, the refined frames on which SAM's mask was kept: a
+        # device count, read by callers that want the gate's keep rate
+        self.sam_kept: Optional[torch.Tensor] = None
 
     def clear_memory(self) -> None:
         """base_tracker.py:1092-1096."""
@@ -105,6 +122,16 @@ class Tracker:
         self.mapper.clear()
         self._frames_tracked = 0
         self._mid_video_add = False
+        self.sam_kept = None
+
+    def _count_kept(self, used_sam: Optional[torch.Tensor]) -> None:
+        """Add (..., O) keep decisions to `sam_kept` on the device."""
+        if used_sam is None:
+            return
+        kept = used_sam.reshape(-1, used_sam.shape[-1]).sum(0, dtype=torch.int32)
+        if self.sam_kept is not None:
+            kept[:self.sam_kept.shape[0]] += self.sam_kept
+        self.sam_kept = kept
 
     def _session_cfg(self, live_hint: Optional[int]) -> FrameworkConfig:
         """cfg specialized to this video: object axis = current capacity,
@@ -167,8 +194,9 @@ class Tracker:
                 torch.from_numpy(valid).to(self.device), self._session_cfg(None))
         else:
             self._ensure_state(frame)
-            self.state, indexed, logits, scores, painted = track_frame(
-                self.net, self.state, ft, self._track_cfg())
+            self.state, indexed, logits, scores, painted, used_sam = track_frame(
+                self.net, self.sam, self.state, ft, self._track_cfg())
+            self._count_kept(used_sam)
         self._frames_tracked += 1
 
         indexed_np = indexed.cpu().numpy()
@@ -187,3 +215,43 @@ class Tracker:
             present = set(np.unique(indexed_np).tolist())
             live_slots = [s for s in live_slots if s in present]
         return [float(scores_np[s - 1]) for s in live_slots]
+
+    def track_batch(self, frames, chunk: int = 4, paint: bool = False):
+        """Throughput path (`inference/chunked.py:track_chunk`): full chunks
+        of `chunk` frames run K XMem steps and one batched SAM encode and
+        refinement; the remainder runs per frame, so padded duplicates
+        never touch the memory. Must be seeded first with
+        track(frame, annotation). Returns (masks, scores), or with `paint`
+        (masks, painted, scores), painted as per-frame tracking paints."""
+        if self.state is None:
+            raise RuntimeError("track_batch needs a seeded tracker: call "
+                               "track(frame, first_frame_annotation) first")
+        masks_out, painted_out, scores_out = [], [], []
+        n_full = (len(frames) // chunk) * chunk
+        for i0 in range(0, n_full, chunk):
+            cfg = self._track_cfg()
+            o = cfg.xmem.max_objects
+            fb = torch.from_numpy(np.ascontiguousarray(np.stack(frames[i0:i0 + chunk]))
+                                  ).to(self.device)
+            self.state, indexed, scores, used_sam = track_chunk(
+                self.net, self.sam, self.state, fb, cfg)
+            self._count_kept(used_sam)
+            self._frames_tracked += chunk
+            painted = ([paint_indexed(fb[j], indexed[j], o) for j in range(chunk)]
+                       if paint else None)
+            idx_np = indexed.cpu().numpy()
+            sc_np = scores.cpu().numpy()
+            for j in range(chunk):
+                masks_out.append(self.mapper.remap_index_mask(idx_np[j]).astype(np.uint8))
+                scores_out.append(self._live_scores(sc_np[j], idx_np[j]))
+                if paint:
+                    painted_out.append(painted[j].cpu().numpy())
+        for f in frames[n_full:]:
+            m, _lg, p, s = self.track(f)
+            masks_out.append(m)
+            scores_out.append(s)
+            if paint:
+                painted_out.append(p)
+        if paint:
+            return masks_out, painted_out, scores_out
+        return masks_out, scores_out

@@ -65,6 +65,32 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return x * scale[:, None, None] + shift[:, None, None]
 
 
+def conv_transpose2d(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor:
+    """NCHW transposed convolution with the official IOHW weight, in the
+    input's dtype. The JAX package stores the same kernel HWIO and flips it
+    (`layers.py:104-123`); `utils/checkpoint.py` converts between the two."""
+    w = conv.weight.to(x.dtype)
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv_transpose2d(x, w, b, conv.stride, conv.padding)
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis computed in fp32 and cast back
+    (`layers.py:137-141`; eps 1e-6 everywhere, as the JAX package)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * ln.weight.float() + ln.bias.float()).to(x.dtype)
+
+
+def gelu_fast(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate gelu in bf16, exact erf otherwise (`layers.py:181-196`)."""
+    if x.dtype == torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
+
+
 def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
              padding: int = 1) -> torch.Tensor:
     """NCHW max pool; the padding never wins (it is -inf)."""

@@ -28,6 +28,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 SOURCES: Dict[str, str] = {
     "memory_read": "memory_read.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = (

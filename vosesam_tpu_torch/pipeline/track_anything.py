@@ -1,15 +1,17 @@
 """TrackingAnything facade: the public pipeline entry point (port of
-`vosesam_tpu/pipeline/track_anything.py`, XMem part).
+`vosesam_tpu/pipeline/track_anything.py`).
 
-Reference: track_anything.py (:14-95). This slice builds the XMem tracker
-(config 1 of the reference, `RefinementConfig(use_refinement=False)`) and
-`generator`; the SAM controller, `first_frame_click`, `generator_chunked`
-and the inpainter come with later slices.
+Reference: track_anything.py (:14-95). Builds the XMem tracker and, when
+refinement is on (or a SAM checkpoint is given), the SAM / SAM-HQ model;
+`generator` tracks frame by frame, `generator_chunked` seeds frame 0 and
+runs the rest through the chunked path. The SAM controller,
+`first_frame_click` and the inpainter come with later slices.
 
-Weights: an official XMem `.pth` when `xmem_checkpoint` names an existing
-file, else a seeded random init with the JAX package's scheme (lets the
-pipeline run end to end without the original weights; real evaluations
-must pass real checkpoints).
+Weights: an official checkpoint when the path names an existing file, else
+seeded random weights with the JAX package's schemes (XMem from `seed`, SAM
+from `seed + 1`, mirroring the JAX facade's PRNGKey(0) / PRNGKey(1)); real
+evaluations must pass real checkpoints. SAM's weights are held in
+`cfg.dtype`.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from vosesam_tpu_torch.config import FrameworkConfig, XMemConfig
-from vosesam_tpu_torch.device import DeviceLike, resolve_device
+from vosesam_tpu_torch.config import FrameworkConfig, SAMConfig, XMemConfig
+from vosesam_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from vosesam_tpu_torch.inference.tracker import Tracker
+from vosesam_tpu_torch.models.sam.predictor import Sam, sam_init
 from vosesam_tpu_torch.models.xmem.network import XMem, xmem_init
 
 
@@ -40,27 +44,42 @@ def load_or_init_xmem(checkpoint: Optional[str], cfg: XMemConfig,
     return xmem_init(cfg, seed=seed, device=dev).eval(), cfg
 
 
-class TrackingAnything:
-    """track_anything.py:14-33 equivalent (XMem tracker only).
+def load_or_init_sam(checkpoint: Optional[str], cfg: SAMConfig,
+                     device: DeviceLike = None, seed: int = 1,
+                     dtype: torch.dtype = torch.float32) -> Sam:
+    dev = resolve_device(device)
+    if checkpoint and os.path.exists(checkpoint):
+        from vosesam_tpu_torch.utils.checkpoint import load_sam_checkpoint
 
-    Runs on the card unless `device="cpu"`."""
+        sam = Sam(cfg)
+        sam.load_state_dict(load_sam_checkpoint(checkpoint), strict=True)
+        return sam.to(device=dev, dtype=dtype).eval()
+    return sam_init(cfg, seed=seed, device=dev, dtype=dtype)
+
+
+class TrackingAnything:
+    """track_anything.py:14-33 equivalent. Runs on the card unless
+    `device="cpu"`."""
 
     def __init__(
         self,
+        sam_checkpoint: Optional[str] = None,
         xmem_checkpoint: Optional[str] = None,
         cfg: Optional[FrameworkConfig] = None,
         device: DeviceLike = None,
         seed: int = 0,
     ) -> None:
         self.cfg = cfg or FrameworkConfig()
-        if self.cfg.refinement.use_refinement:
-            raise NotImplementedError("SAM refinement: slice 2")
         self.device = resolve_device(device)
         net, xmem_cfg = load_or_init_xmem(xmem_checkpoint, self.cfg.xmem,
                                           self.device, seed)
         self.cfg = dataclasses.replace(self.cfg, xmem=xmem_cfg)
         self.xmem_net = net
-        self.xmem = Tracker(net, self.cfg, device=self.device)
+        self.sam = (
+            load_or_init_sam(sam_checkpoint, self.cfg.sam, self.device, seed + 1,
+                             torch_dtype(self.cfg.dtype))
+            if (self.cfg.refinement.use_refinement or sam_checkpoint) else None)
+        self.xmem = Tracker(net, self.cfg, device=self.device, sam=self.sam)
 
     def generator(
         self, images: Sequence[np.ndarray], template_mask: np.ndarray
@@ -75,3 +94,16 @@ class TrackingAnything:
             painted.append(p)
             scores.append(s)
         return masks, logits, painted, scores
+
+    def generator_chunked(self, images: Sequence[np.ndarray], template_mask: np.ndarray,
+                          chunk: int = 4, paint: bool = False):
+        """Throughput variant of generator(): frame 0 seeds per frame, the
+        rest run through `Tracker.track_batch`. Returns (masks, scores); with
+        `paint=True`, (masks, painted_images, scores)."""
+        m0, _lg, p0, s0 = self.xmem.track(images[0], template_mask)
+        if paint:
+            masks, painted, scores = self.xmem.track_batch(list(images[1:]), chunk=chunk,
+                                                           paint=True)
+            return [m0] + masks, [p0] + painted, [s0] + scores
+        masks, scores = self.xmem.track_batch(list(images[1:]), chunk=chunk)
+        return [m0] + masks, [s0] + scores

@@ -1,14 +1,20 @@
-"""XMem weights into the port (counterpart of `vosesam_tpu/utils/checkpoint.py`).
+"""XMem and SAM weights into the port (counterpart of
+`vosesam_tpu/utils/checkpoint.py`).
 
-The port's `XMem` module uses the official XMem-s012 state-dict names, so
+The port's `XMem` and `Sam` modules use the official state-dict names
+(XMem-s012; segment_anything / sam_hq), so
   - `load_xmem_checkpoint` reads an official `.pth` straight in, with the
     same dim inference (network.py:134-182) and 4 -> 5 input-channel surgery
     of the value encoder (network.py:184-198) as the JAX loader;
-  - `params_from_jax` turns the JAX package's XMem parameter tree (nested
-    dicts of numpy arrays) into the same state dict: conv HWIO -> OIHW,
-    linear (in, out) -> (out, in), `key_encoder.layer1.` -> the official
-    `key_encoder.res2.`, and `num_batches_tracked` beside every batch norm.
-Both results load into `XMem` with `load_state_dict(strict=True)`.
+  - `load_sam_checkpoint` reads an official `sam_vit_*` / `sam_hq_vit_h`
+    `.pth` (the `image_encoder.` / `prompt_encoder.` / `mask_decoder.` keys);
+  - `params_from_jax` turns a JAX parameter tree (nested dicts of numpy
+    arrays: the XMem tree, or `SamParams`) into the same state dict: conv
+    HWIO -> OIHW, conv-transpose HWIO -> IOHW, linear (in, out) -> (out, in),
+    embedding tables and other leaves as they are, `key_encoder.layer1.` ->
+    the official `key_encoder.res2.`, and `num_batches_tracked` beside every
+    batch norm.
+All results load with `load_state_dict(strict=True)`.
 """
 
 from __future__ import annotations
@@ -21,6 +27,14 @@ import torch
 from vosesam_tpu_torch.config import XMemConfig
 
 _KEY_STAGE_RENAME = ("key_encoder.layer1.", "key_encoder.res2.")
+# 2-D `.weight` leaves that are embedding tables, not linear layers
+_EMBEDDING_MARKERS = ("point_embeddings", "not_a_point_embed", "no_mask_embed",
+                      "iou_token", "mask_tokens", "hf_token")
+# ConvTranspose2d weights of the SAM (HQ) mask decoder
+_CONV_TRANSPOSE = tuple(f"mask_decoder.{m}.{i}.weight"
+                        for m in ("output_upscaling", "compress_vit_feat",
+                                  "embedding_encoder") for i in (0, 3))
+_SAM_PARTS = ("image_encoder", "prompt_encoder", "mask_decoder")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -34,16 +48,22 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX XMem parameter tree (numpy leaves) -> the port's state dict."""
+def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
+    """JAX XMem parameter tree or `SamParams` (numpy leaves) -> the port's
+    state dict."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):     # SamParams
+        tree = dict(zip(_SAM_PARTS, tree))
     sd: Dict[str, torch.Tensor] = {}
     for key, arr in _flatten(tree).items():
         if key.startswith(_KEY_STAGE_RENAME[0]):
             key = _KEY_STAGE_RENAME[1] + key[len(_KEY_STAGE_RENAME[0]):]
         arr = np.array(arr, np.float32)
-        if key.endswith(".weight") and arr.ndim == 4:      # HWIO -> OIHW
+        if key in _CONV_TRANSPOSE:                         # HWIO -> IOHW
+            arr = np.transpose(arr, (2, 3, 0, 1))
+        elif key.endswith(".weight") and arr.ndim == 4:    # HWIO -> OIHW
             arr = np.transpose(arr, (3, 2, 0, 1))
-        elif key.endswith(".weight") and arr.ndim == 2:    # (in, out) -> (out, in)
+        elif (key.endswith(".weight") and arr.ndim == 2
+              and not any(m in key for m in _EMBEDDING_MARKERS)):   # (in, out) -> (out, in)
             arr = arr.T
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
         if key.endswith(".running_var"):
@@ -105,3 +125,11 @@ def load_xmem_checkpoint(
     if "network" in sd and isinstance(sd["network"], dict):
         sd = sd["network"]
     return xmem_state_dict(sd, cfg)
+
+
+def load_sam_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read an official sam_vit_{b,l,h} / sam_hq_vit_h `.pth` into a state
+    dict for `Sam` (fp32; keys outside the three sub-modules dropped)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: torch.as_tensor(v).float() for k, v in sd.items()
+            if k.split(".", 1)[0] in _SAM_PARTS}
