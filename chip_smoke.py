@@ -20,6 +20,16 @@ Phases (each one that fails exits non-zero):
      multiple of 64, D 64, gh != gw, 3 heads); timings of the kernel, the
      plain version and `scaled_dot_product_attention` with the materialised
      bias (a yardstick the port never calls), beside the bound;
+  2c. kernel vs plain for B4 / B5 (whole-window attention with factorised
+     rel-pos bias, one kernel under both names): vit_h's 16 heads, 14x14
+     windows, D 80, at the rect grid's 15 windows per frame and the square
+     grid's 25, B 1 and 8, bf16 and fp32, on the strided q / k / v views the
+     encoder passes, plus edge cases (5x9 and 7x7 windows, D 64 / 37 / 128,
+     3 heads, one window, bad shapes raise); timings of the kernel, the
+     plain version, B3's kernel at BH = W * heads and N 196 (the same
+     function) and `scaled_dot_product_attention` with the dense bias, as
+     device time from torch.profiler (one call is shorter than the host
+     takes to launch it);
   3. XMem end to end: `TrackingAnything` (XMem-s012 widths, default
      MemoryConfig, bf16, no refinement) tracks a 64-frame 480x854 clip with
      two objects seeded on frame 0 and a third added on frame 40;
@@ -28,15 +38,26 @@ Phases (each one that fails exits non-zero):
   5. the main path: XMem + SAM-HQ vit_h refinement (`both_neg`, point
      algorithm C, the 0.94 gate, rect encode, 2 objects, bf16): `generator`
      over 16 frames, `generator_chunked(chunk=8, paint=True)` over 33, and
-     `generator` over 8 frames with the official square encode; B3 launches
+     `generator` over 4 frames with the official square encode; B3 launches
      4 per refined frame / per chunk, no plain call; one frame's
      `encode_image` + `refine_masks` under `set_sync_debug_mode("error")`;
+     then the same two rect runs with the window kernel selected
+     (`windowed_attention_impl="pallas"` per frame, `"pallas_mh"` chunked):
+     28 window launches + 4 B3 launches per refined frame / per chunk, no
+     plain call, masks compared with the default-impl runs by agreement;
   6. refinement kernel vs plain end to end: the phase-5 config in fp32 over
-     8 frames, through the kernels and through the plain versions
-     (`SAMConfig(use_flash_attention=False)`, `MemoryConfig(fused_read=False)`),
-     then the same pair with the score gate off, so that SAM's masks are kept.
+     8 frames, through the kernels (`windowed_attention_impl="pallas"`) and
+     through the plain versions (`SAMConfig(use_flash_attention=False,
+     windowed_attention_impl="xla")`, `MemoryConfig(fused_read=False)`),
+     then the same pair with the score gate off, so that SAM's masks are kept;
+  7. the interactive entry points: `TrackingAnything` with SAM-HQ vit_h at
+     the official square encode and the window kernel: `first_frame_click`
+     with one positive click, then a positive-after-negative history (two
+     passes), then `generate_masks(points_per_side=16)`; one encode per
+     `set_image` (28 window + 4 B3 launches, no plain call); in fp32 the
+     clicked mask against the same click through the plain versions.
 Kernel launch counts are set to 0 right before each main-path run (phases
-3 and 5) and read right after; the `kernels` line sums them.
+3, 5 and 7) and read right after; the `kernels` line sums them.
 The last two lines are the `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -126,6 +147,26 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: torch.profiler's sum over the CUDA kernels
+    of `calls` back-to-back calls, divided by the calls. For a call shorter
+    than the host takes to launch it (the window kernel: tens of
+    microseconds), where a CUDA-event pair around one call times the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total_us = sum(e.self_device_time_total for e in events)
+    check(total_us > 0, "torch.profiler reported no device time")
+    return total_us / 1e3 / calls
 
 
 def softmax0(x: np.ndarray) -> np.ndarray:
@@ -580,9 +621,162 @@ def phase_flash_kernel(torch):
     return kernel, cases
 
 
+# ------------------------------------------------------ B4 / B5 (window)
+
+def _window_case(torch, gen, w, heads, wh, ww, d, dtype, strided: bool = True):
+    """q, k, v (W, heads, T, D) and the fp32 bias factors. `strided`: q, k, v
+    are the views the encoder passes, slices of one (W, T, 3, heads, D)
+    projection; else contiguous tensors."""
+    t = wh * ww
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    if strided:
+        q, k, v = (x.transpose(1, 2) for x in rnd(w, t, 3, heads, d).to(dtype).unbind(2))
+    else:
+        q, k, v = (rnd(w, heads, t, d).to(dtype) for _ in range(3))
+    return q, k, v, rnd(w, heads, t, wh), rnd(w, heads, t, ww)
+
+
+def _window_bound(w, heads, wh, ww, d, itemsize, flop_rate):
+    t = wh * ww
+    flops = 4 * w * heads * t * t * d
+    bytes_moved = 4 * w * heads * t * d * itemsize + w * heads * t * (wh + ww) * 4
+    t_ops = flops / flop_rate * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_window_kernel(torch):
+    """B4 / B5 against their plain version at the main path's shapes and the
+    edge cases; device times (torch.profiler) of the kernel, the plain
+    version, B3's kernel on the same function and the SDPA yardstick."""
+    import torch.nn.functional as F
+
+    from vosesam_tpu_torch.ops.kernels import flash_attention as fa
+    from vosesam_tpu_torch.ops.kernels import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    heads, wh, ww, d = 16, 14, 14, 80
+    t = wh * ww
+    cases = []
+    for label, per_frame in (("rect", 15), ("square", 25)):
+        for b in (1, 8):
+            w = per_frame * b
+            for dtype, tol in ((torch.bfloat16, BF16_ATTN_TOL), (torch.float32, FP32_ATTN_TOL)):
+                args = _window_case(torch, gen, w, heads, wh, ww, d, dtype)
+                out = wa.window_attention_relpos(*args, (wh, ww))
+                out_mh = wa.window_attention_relpos_mh(*args, (wh, ww))
+                torch.cuda.synchronize()
+                ref = wa.window_attention_relpos_plain(*args, (wh, ww))
+                err = (out.float() - ref.float()).abs().max().item()
+                name = f"B4/B5 {label} B{b} {str(dtype).split('.')[-1]}"
+                check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+                check(err <= tol, f"{name}: max abs err {err} > {tol}")
+                check(torch.equal(out, out_mh), f"{name}: the two names disagree")
+                check(out.transpose(1, 2).reshape(w, t, heads * d).is_contiguous(),
+                      f"{name}: the output is not (W, T, heads * D) memory")
+                bf16 = dtype == torch.bfloat16
+                row = dict(grid=label, windows=w, batch=b, heads=heads, window=(wh, ww), d=d,
+                           dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol)
+                # device time by the profiler; beside it the CUDA-event time
+                # of one call, which at these sizes is the host's launch time
+                row["ms"] = device_ms(torch, lambda: wa.window_attention_relpos(*args, (wh, ww)),
+                                      calls=20 if bf16 else 5)
+                row["event_ms"] = time_ms(
+                    torch, lambda: wa.window_attention_relpos(*args, (wh, ww)),
+                    reps=25 if bf16 else 5)
+                row["bound_ms"], row["bound_by"] = _window_bound(
+                    w, heads, wh, ww, d, 2 if bf16 else 4,
+                    BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S)
+                if bf16:
+                    row["ms_mh"] = device_ms(
+                        torch, lambda: wa.window_attention_relpos_mh(*args, (wh, ww)))
+                    row["plain_ms"] = device_ms(
+                        torch, lambda: wa.window_attention_relpos_plain(*args, (wh, ww)), calls=5)
+                    # yardsticks on contiguous copies: B3's kernel computes the
+                    # same function at BH = W * heads, N = 196; SDPA takes the
+                    # dense bias as its mask
+                    q, k, v, bh_, bw_ = (x.contiguous() for x in args)
+                    row["ms_contiguous"] = device_ms(
+                        torch, lambda: wa.window_attention_relpos(q, k, v, bh_, bw_, (wh, ww)))
+                    flat = [x.reshape(w * heads, t, -1) for x in (q, k, v, bh_, bw_)]
+                    b3 = fa.flash_attention_relpos(*flat, (wh, ww)).reshape(w, heads, t, d)
+                    torch.cuda.synchronize()
+                    b3_err = (b3.float() - out.float()).abs().max().item()
+                    check(b3_err <= tol, f"{name}: B3 at N 196 differs from B4 by {b3_err}")
+                    row["b3_vs_b4_max_abs_err"] = b3_err
+                    row["b3_at_n196_ms"] = device_ms(
+                        torch, lambda: fa.flash_attention_relpos(*flat, (wh, ww)))
+                    mask = (bh_[..., :, None] + bw_[..., None, :]).reshape(w, heads, t, t).to(dtype)
+                    row["library_ms"] = device_ms(
+                        torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+                    del mask, flat, b3
+                    log(f"[B4/B5] {label} B{b} bf16 (W {w}): err {err:.3g} | kernel "
+                        f"{row['ms']:.4f} ms device (as _mh {row['ms_mh']:.4f}, contiguous "
+                        f"inputs {row['ms_contiguous']:.4f}; one call by CUDA events "
+                        f"{row['event_ms']:.3f}), plain {row['plain_ms']:.3f}, B3 at N 196 "
+                        f"{row['b3_at_n196_ms']:.4f}, sdpa {row['library_ms']:.4f}, bound "
+                        f"{row['bound_ms']:.4f} ({row['bound_by']})")
+                else:
+                    log(f"[B4/B5] {label} B{b} fp32 (W {w}): err {err:.3g} | kernel "
+                        f"{row['ms']:.3f} ms device, bound {row['bound_ms']:.4f}")
+                cases.append(row)
+                del args, out, out_mh, ref
+    for w, hd_, ewh, eww, dd in ((3, 2, 5, 9, 64), (3, 4, 5, 9, 80), (2, 3, 7, 7, 37),
+                                 (1, 3, 14, 14, 128), (2, 2, 16, 16, 64), (1, 1, 1, 1, 8),
+                                 (2, 2, 8, 14, 72)):
+        for dtype, tol in ((torch.bfloat16, BF16_ATTN_TOL), (torch.float32, FP32_ATTN_TOL)):
+            for strided in (True, False):
+                args = _window_case(torch, gen, w, hd_, ewh, eww, dd, dtype, strided)
+                out = wa.window_attention_relpos_mh(*args, (ewh, eww))
+                torch.cuda.synchronize()
+                err = (out.float() - wa.window_attention_relpos_plain(*args, (ewh, eww)).float()
+                       ).abs().max().item()
+                check(err <= tol, f"B4/B5 edge W{w} h{hd_} {ewh}x{eww} d{dd} {dtype} "
+                                  f"strided={strided}: err {err}")
+    q, k, v, bh_, bw_ = _window_case(torch, gen, 2, 2, 4, 4, 16, torch.bfloat16, False)
+    bad = {"k shape": (q, k[..., :10].contiguous(), v, bh_, bw_, (4, 4)),
+           "window": (q, k, v, bh_, bw_, (4, 5)),
+           "bias dtype": (q, k, v, bh_.to(torch.bfloat16), bw_, (4, 4)),
+           "q last axis": (torch.zeros_like(q).repeat(1, 1, 1, 2)[..., ::2], k, v, bh_, bw_,
+                           (4, 4)),
+           "bias layout": (q, k, v, bh_.transpose(2, 3).contiguous().transpose(2, 3), bw_,
+                           (4, 4))}
+    for what, a in bad.items():
+        try:
+            wa.window_attention_relpos(*a)
+        except (ValueError, TypeError):
+            pass
+        else:
+            raise SmokeFailure(f"B4/B5: bad {what} did not raise")
+    log("[B4/B5] edge cases: 5x9 / 7x7 / 16x16 / 8x14 / 1x1 windows, D 64 / 80 / 37 / 128 / "
+        "72 / 8, 3 heads, one window, strided and contiguous, fp32 + bf16, bad inputs raise: ok")
+    per_frame = next(c for c in cases if c["grid"] == "rect" and c["batch"] == 1
+                     and c["dtype"] == "bfloat16")
+    worst = max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16")
+    common = dict(route="cuda", source="vosesam_tpu_torch/csrc/window_attention.cu",
+                  max_abs_err=worst, plain_ms=per_frame["plain_ms"],
+                  bound_ms=per_frame["bound_ms"], bound_by=per_frame["bound_by"],
+                  library_ms=per_frame["library_ms"],
+                  b3_at_n196_ms=per_frame["b3_at_n196_ms"],
+                  event_ms=per_frame["event_ms"], timed_by="torch.profiler device time",
+                  shape="rect: 15 windows of 14x14, 16 heads, D 80, bf16, strided q/k/v")
+    kernels = [
+        dict(name="window_attention_relpos",
+             replaces="vosesam_tpu/ops/pallas/flash_attention.py:161", ms=per_frame["ms"],
+             **common),
+        dict(name="window_attention_relpos_mh",
+             replaces="vosesam_tpu/ops/pallas/flash_attention.py:258", ms=per_frame["ms_mh"],
+             **common)]
+    return kernels, cases
+
+
 # ------------------------------------------------- the main path (SAM-HQ)
 
-def _main_cfg(dtype: str, rect: bool = True, kernels: bool = True, gate: bool = True):
+def _main_cfg(dtype: str, rect: bool = True, kernels: bool = True, gate: bool = True,
+              window_impl: str = "xla_fused_bias"):
     from vosesam_tpu_torch.config import (
         FrameworkConfig,
         MemoryConfig,
@@ -593,7 +787,7 @@ def _main_cfg(dtype: str, rect: bool = True, kernels: bool = True, gate: bool = 
 
     return FrameworkConfig(
         sam=SAMConfig(model_type="vit_h", hq=True, encode_rect=rect,
-                      use_flash_attention=kernels),
+                      use_flash_attention=kernels, windowed_attention_impl=window_impl),
         refinement=RefinementConfig(mode="both_neg", point_algorithm="C", optimized=gate),
         xmem=XMemConfig(max_objects=2), memory=MemoryConfig(fused_read=kernels), dtype=dtype)
 
@@ -601,19 +795,28 @@ def _main_cfg(dtype: str, rect: bool = True, kernels: bool = True, gate: bool = 
 def _reset_all():
     from vosesam_tpu_torch.ops.kernels import flash_attention as fa
     from vosesam_tpu_torch.ops.kernels import memory_read as mr
+    from vosesam_tpu_torch.ops.kernels import window_attention as wa
 
     fa.reset_counts()
     mr.reset_counts()
+    wa.reset_counts()
 
 
 def _read_all():
     from vosesam_tpu_torch.ops.kernels import flash_attention as fa
     from vosesam_tpu_torch.ops.kernels import memory_read as mr
+    from vosesam_tpu_torch.ops.kernels import window_attention as wa
 
     return {"flash_attention_relpos": fa.COUNTS["flash_attention_relpos"],
+            "window_attention_relpos": wa.COUNTS["window_attention_relpos"],
+            "window_attention_relpos_mh": wa.COUNTS["window_attention_relpos_mh"],
             "fused_memory_read_shared": mr.COUNTS["fused_memory_read_shared"],
             "fused_memory_read": mr.COUNTS["fused_memory_read"],
-            "plain": fa.COUNTS["plain"] + mr.COUNTS["plain"]}
+            "plain": fa.COUNTS["plain"] + mr.COUNTS["plain"] + wa.COUNTS["plain"]}
+
+
+WINDOWED_BLOCKS = 28   # vit_h: 32 blocks, 4 of them global
+GLOBAL_BLOCKS = 4
 
 
 def _check_outputs(masks, h, w, name):
@@ -624,7 +827,7 @@ def _check_outputs(masks, h, w, name):
     check(set(np.unique(masks[0]).tolist()) == {0, 1, 2}, f"{name}: frame 0 labels")
 
 
-def phase_main_path(torch, n_frames: int = 16, n_chunked: int = 33, n_square: int = 8):
+def phase_main_path(torch, n_frames: int = 16, n_chunked: int = 33, n_square: int = 4):
     from vosesam_tpu_torch.inference import core
     from vosesam_tpu_torch.inference.refinement import masks_from_prob, refine_masks, \
         xmem_object_scores
@@ -645,7 +848,10 @@ def phase_main_path(torch, n_frames: int = 16, n_chunked: int = 33, n_square: in
     ta.xmem.clear_memory()
     runs = {}
 
-    def run(name, ta, fn, n_refined, expect_b3):
+    def run(name, ta, fn, n_refined, n_encodes, window_kernel=None):
+        """Drive one main-path run from zeroed counts; `n_encodes` SAM
+        encodes must each launch B3 once per global block and, with
+        `window_kernel` named, that kernel once per windowed block."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_all()
@@ -658,8 +864,12 @@ def phase_main_path(torch, n_frames: int = 16, n_chunked: int = 33, n_square: in
         check(kept is not None and tuple(kept.shape) == (2,), f"{name}: no refinement record")
         kept = kept.cpu().numpy()
         check(bool((kept <= n_refined).all()), f"{name}: kept counts {kept} > {n_refined} frames")
-        check(counts["flash_attention_relpos"] == expect_b3,
-              f"{name}: {counts['flash_attention_relpos']} B3 launches, expected {expect_b3}")
+        check(counts["flash_attention_relpos"] == GLOBAL_BLOCKS * n_encodes,
+              f"{name}: {counts['flash_attention_relpos']} B3 launches, expected "
+              f"{GLOBAL_BLOCKS * n_encodes}")
+        for wk in ("window_attention_relpos", "window_attention_relpos_mh"):
+            want = WINDOWED_BLOCKS * n_encodes if wk == window_kernel else 0
+            check(counts[wk] == want, f"{name}: {counts[wk]} {wk} launches, expected {want}")
         check(counts["plain"] == 0, f"{name}: {counts['plain']} plain calls on the main path")
         check(counts["fused_memory_read_shared"] > 0, f"{name}: B1 never launched")
         runs[name] = dict(frames=len(out[0]), launches=counts, wall_s=wall,
@@ -672,14 +882,14 @@ def phase_main_path(torch, n_frames: int = 16, n_chunked: int = 33, n_square: in
 
     masks, logits, painted, scores = run(
         "per_frame_rect", ta, lambda: ta.generator(frames[:n_frames], seed), n_frames - 1,
-        4 * (n_frames - 1))
+        n_frames - 1)
     _check_outputs(masks, h, w, "per-frame")
     check(all(lg.shape == (3, h, w) and np.isfinite(lg).all() for lg in logits),
           "per-frame: logits shape / finiteness")
     check(all(p.shape == (h, w, 3) for p in painted), "per-frame: painted shape")
     n_chunks = (n_chunked - 1) // 8
     cm, cp, cs = run("chunked_rect", ta, lambda: ta.generator_chunked(
-        frames[:n_chunked], seed, chunk=8, paint=True), n_chunked - 1, 4 * n_chunks)
+        frames[:n_chunked], seed, chunk=8, paint=True), n_chunked - 1, n_chunks)
     check(len(cm) == len(cp) == n_chunked, "chunked: frame count")
     _check_outputs(cm, h, w, "chunked")
     agree = float(np.mean([(a == b).mean() for a, b in zip(cm[:n_frames], masks)]))
@@ -708,11 +918,40 @@ def phase_main_path(torch, n_frames: int = 16, n_chunked: int = 33, n_square: in
     del ta
     torch.cuda.empty_cache()
 
+    # the same two runs through the window kernel, under each of its names
+    def agreement(name, got, want):
+        share = float(np.mean([(a == b).mean() for a, b in zip(got, want)]))
+        runs[name]["mask_agreement_with_default_impl"] = share
+        log(f"[main] {name} vs the default windowed impl: {share:.5f} of mask pixels equal")
+        check(share >= 0.99, f"{name}: masks agree with the default impl on only {share}")
+
+    pk = TrackingAnything(cfg=_main_cfg("bfloat16", window_impl="pallas"), device="cuda", seed=0)
+    pk.generator(frames[:3], seed)
+    pk.xmem.clear_memory()
+    pm, _, _, _ = run("per_frame_rect_pallas", pk, lambda: pk.generator(frames[:n_frames], seed),
+                      n_frames - 1, n_frames - 1, "window_attention_relpos")
+    _check_outputs(pm, h, w, "per-frame pallas")
+    agreement("per_frame_rect_pallas", pm, masks)
+    del pk
+    torch.cuda.empty_cache()
+    mh = TrackingAnything(cfg=_main_cfg("bfloat16", window_impl="pallas_mh"), device="cuda",
+                          seed=0)
+    mh.generator_chunked(frames[:9], seed, chunk=8)
+    mh.xmem.clear_memory()
+    mm, mp, _ = run("chunked_rect_pallas_mh", mh, lambda: mh.generator_chunked(
+        frames[:n_chunked], seed, chunk=8, paint=True), n_chunked - 1, n_chunks,
+        "window_attention_relpos_mh")
+    check(len(mm) == len(mp) == n_chunked, "chunked pallas_mh: frame count")
+    _check_outputs(mm, h, w, "chunked pallas_mh")
+    agreement("chunked_rect_pallas_mh", mm, cm)
+    del mh
+    torch.cuda.empty_cache()
+
     sq = TrackingAnything(cfg=_main_cfg("bfloat16", rect=False), device="cuda", seed=0)
     sq.generator(frames[:2], seed)
     sq.xmem.clear_memory()
     sm, _, _, _ = run("per_frame_square", sq, lambda: sq.generator(frames[:n_square], seed),
-                      n_square - 1, 4 * (n_square - 1))
+                      n_square - 1, n_square - 1)
     _check_outputs(sm, h, w, "square")
     del sq
     torch.cuda.empty_cache()
@@ -735,8 +974,9 @@ def _track_with_decisions(ta, frames, seed):
 
 
 def phase_main_kernel_vs_plain(torch, n_frames: int = 8):
-    """fp32, TF32 off: the main path through the kernels and through the
-    plain versions; frame 1's SAM embedding within 2e-3; on every frame
+    """fp32, TF32 off: the main path through the kernels (B1/B2, B3 and, with
+    `windowed_attention_impl="pallas"`, B4) and through the plain versions
+    (the "xla" windowed path); frame 1's SAM embedding within 2e-3; on every frame
     >= 99.9% of refined mask pixels equal and the same keep/revert
     decisions. Random-weight SAM never passes the 0.94 gate, so the pair
     runs again with the gate off, where every prompted object keeps SAM's
@@ -753,18 +993,23 @@ def phase_main_kernel_vs_plain(torch, n_frames: int = 8):
         out = {}
         emb = {}
         for plain in (False, True):
-            ta = TrackingAnything(cfg=_main_cfg("float32", kernels=not plain, gate=gate),
-                                  device="cuda", seed=0)
+            ta = TrackingAnything(
+                cfg=_main_cfg("float32", kernels=not plain, gate=gate,
+                              window_impl="xla" if plain else "pallas"),
+                device="cuda", seed=0)
             _reset_all()
             masks, keep = _track_with_decisions(ta, frames, seed)
             counts = _read_all()
             if plain:
-                check(counts["flash_attention_relpos"] == 0 and counts["fused_memory_read"] == 0
-                      and counts["fused_memory_read_shared"] == 0
-                      and counts["plain"] == 4 * refined + n_frames, f"plain run: {counts}")
+                # B3's plain version per global block and the plain read per
+                # frame; the "xla" windowed path is plain torch in the encoder
+                check(all(counts[k] == 0 for k in counts if k != "plain")
+                      and counts["plain"] == GLOBAL_BLOCKS * refined + n_frames,
+                      f"plain run: {counts}")
             else:
-                check(counts["flash_attention_relpos"] == 4 * refined and counts["plain"] == 0,
-                      f"kernel run: {counts}")
+                check(counts["flash_attention_relpos"] == GLOBAL_BLOCKS * refined
+                      and counts["window_attention_relpos"] == WINDOWED_BLOCKS * refined
+                      and counts["plain"] == 0, f"kernel run: {counts}")
             out[plain] = (masks, keep)
             if gate:
                 emb[plain] = predictor.encode_image(
@@ -789,6 +1034,96 @@ def phase_main_kernel_vs_plain(torch, n_frames: int = 8):
     return summary
 
 
+def phase_interactive(torch, n_clicks: int = 5):
+    """The interactive entry points at full width: SAM-HQ vit_h, the official
+    square encode (64x64 tokens, 25 windows), the window kernel selected.
+    Counts are set to 0 before `set_image`, the clicks and the automatic
+    masks and read after: one encode per `set_image` and one per
+    `generate_masks`, none per click."""
+    from vosesam_tpu_torch.models.sam import automatic
+    from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
+
+    h, w = 480, 854
+    image = moving_frames(1, h, w, seed=5)[0]
+    one = (np.array([[320.0, 200.0]]), np.array([1]))
+    two = (np.array([[320.0, 200.0], [700.0, 400.0], [330.0, 210.0]]), np.array([1, 0, 1]))
+
+    def timed(fn, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return out, statistics.median(times)
+
+    def check_click(name, out):
+        mask, logit, painted = out
+        check(mask.shape == (h, w) and mask.dtype == np.bool_, f"{name}: mask {mask.shape}")
+        check(logit.shape == (256, 256) and logit.dtype == np.float32
+              and bool(np.isfinite(logit).all()), f"{name}: logit {logit.shape} {logit.dtype}")
+        check(painted.shape == (h, w, 3) and painted.dtype == np.uint8, f"{name}: painted")
+
+    ta = TrackingAnything(cfg=_main_cfg("bfloat16", rect=False, window_impl="pallas"),
+                          device="cuda", seed=0)
+    ctl = ta.samcontroler
+    ctl.set_image(image)            # warm-up, not counted
+    ta.first_frame_click(image, *two)
+    _reset_all()
+    _, set_image_ms = timed(lambda: ctl.set_image(image), 3)
+    counts = _read_all()
+    per_encode = {"flash_attention_relpos": GLOBAL_BLOCKS,
+                  "window_attention_relpos": WINDOWED_BLOCKS}
+    check(all(counts[k] == 3 * per_encode.get(k, 0) for k in counts),
+          f"set_image x3: launches {counts}")
+    check(tuple(ctl.emb.embedding.shape) == (1, 64, 64, 256), "set_image: embedding shape")
+    out1, click_ms = timed(lambda: ta.first_frame_click(image, *one), n_clicks)
+    check_click("one-pass click", out1)
+    out2, click2_ms = timed(lambda: ta.first_frame_click(image, *two), n_clicks)
+    check_click("two-pass click", out2)
+    check(_read_all() == counts, f"a click encoded again: {_read_all()}")
+    # automatic masks: the paper's thresholds, then thresholds that
+    # random-weight masks can pass, so that the NMS has work
+    t0 = time.perf_counter()
+    auto = automatic.generate_masks(ta.sam, image, ta.cfg.sam, points_per_side=16)
+    auto_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loose = automatic.generate_masks(ta.sam, image, ta.cfg.sam, points_per_side=16,
+                                     pred_iou_thresh=-1e3, stability_thresh=0.0)
+    loose_s = time.perf_counter() - t0
+    for name, am in (("automatic", auto), ("automatic, loose thresholds", loose)):
+        n = len(am.masks)
+        check(am.masks.shape == (n, h, w) and am.masks.dtype == np.bool_
+              and am.scores.shape == (n,) and am.points.shape == (n, 2), f"{name}: shapes")
+    check(len(loose.masks) > 0 and bool(loose.masks.reshape(len(loose.masks), -1).any(1).all()),
+          "automatic, loose thresholds: no mask survived")
+    counts = _read_all()
+    check(all(counts[k] == 5 * per_encode.get(k, 0) for k in counts),
+          f"interactive path: launches {counts}")
+    del ta, ctl
+    torch.cuda.empty_cache()
+
+    # fp32, TF32 off: the same clicks through the kernels and the plain versions
+    masks = {}
+    for plain in (False, True):
+        fa32 = TrackingAnything(
+            cfg=_main_cfg("float32", rect=False, kernels=not plain,
+                          window_impl="xla" if plain else "pallas"), device="cuda", seed=0)
+        masks[plain] = [fa32.first_frame_click(image, *c)[0] for c in (one, two)]
+        del fa32
+        torch.cuda.empty_cache()
+    agree = [float((a == b).mean()) for a, b in zip(masks[False], masks[True])]
+    check(min(agree) >= 0.999, f"fp32 clicked masks, kernels vs plain: agreement {agree}")
+    summary = dict(launches=counts, set_image_ms=set_image_ms, click_ms=click_ms,
+                   two_pass_click_ms=click2_ms, automatic_s=auto_s, automatic_masks=len(auto.masks),
+                   automatic_loose_s=loose_s, automatic_loose_masks=len(loose.masks),
+                   clicked_mask_share=[float(out1[0].mean()), float(out2[0].mean())],
+                   fp32_click_agreement_kernels_vs_plain=agree)
+    log(f"[interactive] {json.dumps(summary)}")
+    return summary
+
+
 def _profile_frames(torch, step, n_prof: int):
     """torch.profiler over `n_prof` calls of step(i): device time by kernel
     and the device's busy share of the window."""
@@ -806,17 +1141,26 @@ def _profile_frames(torch, step, n_prof: int):
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:25]
     rows = [dict(name=e.key[:90], ms_per_frame=e.self_device_time_total / 1e3 / n_prof,
                  calls_per_frame=e.count / n_prof) for e in top]
+    # device kernels of interest by a part of their name: the port's own
+    # attention kernels and the fp32 FFMA GEMMs (the rel-pos factors)
+    by_name = {}
+    for part in ("window_relpos", "flash_relpos", "ffma"):
+        hits = [e for e in events if part in e.key]
+        by_name[part] = dict(
+            ms_per_frame=sum(e.self_device_time_total for e in hits) / 1e3 / n_prof,
+            calls_per_frame=sum(e.count for e in hits) / n_prof)
     return dict(frames=n_prof, wall_ms_per_frame=wall_ms / n_prof,
                 device_busy_ms_per_frame=busy_ms / n_prof,
                 device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
                 device_kernel_launches_per_frame=sum(e.count for e in events) / n_prof,
-                top=rows)
+                by_name=by_name, top=rows)
 
 
 def phase_profile(torch, n_warm: int = 12, n_prof: int = 8):
     """Not part of the default run. torch.profiler over steady frames of
     (a) the XMem-only step (bf16, shared-validity read) and (b) the main
-    path (phase 5's config, per-frame `Tracker.track` with refinement)."""
+    path (phase 5's config, per-frame `Tracker.track` with refinement) with
+    the default windowed impl and again with the window kernel."""
     from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
 
     h, w = 480, 854
@@ -827,10 +1171,13 @@ def phase_profile(torch, n_warm: int = 12, n_prof: int = 8):
     out["xmem"] = _profile_frames(torch, lambda i: ta.xmem.track(frames[n_warm + i]), n_prof)
     del ta
     torch.cuda.empty_cache()
-    ta = TrackingAnything(cfg=_main_cfg("bfloat16"), device="cuda", seed=0)
-    ta.generator(frames[:n_warm], seed_mask(h, w))
-    out["main_path"] = _profile_frames(torch, lambda i: ta.xmem.track(frames[n_warm + i]),
-                                       n_prof)
+    for name, impl in (("main_path", "xla_fused_bias"), ("main_path_pallas", "pallas")):
+        ta = TrackingAnything(cfg=_main_cfg("bfloat16", window_impl=impl), device="cuda",
+                              seed=0)
+        ta.generator(frames[:n_warm], seed_mask(h, w))
+        out[name] = _profile_frames(torch, lambda i: ta.xmem.track(frames[n_warm + i]), n_prof)
+        del ta
+        torch.cuda.empty_cache()
     for name, summary in out.items():
         log(f"[profile {name}] {json.dumps(summary)}")
     return out
@@ -868,15 +1215,20 @@ def main() -> int:
         b3, record["b3_cases"] = phase_flash_kernel(torch)
         kernels.append(b3)
         torch.cuda.empty_cache()     # phase 2b's large plain-version buffers
+        window, record["window_cases"] = phase_window_kernel(torch)
+        kernels.extend(window)
+        torch.cuda.empty_cache()
         counts, record["e2e"] = phase_end_to_end(torch)
         record["rollout_fp32"] = phase_kernel_vs_plain_rollout(torch)
         record["main_path"], record["sam_init_s"] = phase_main_path(torch)
         record["main_fp32"] = phase_main_kernel_vs_plain(torch)
-        # launches: the sum over the main-path runs (phase 3 and each of
-        # phase 5's runs), each counted from 0 right before the run
+        record["interactive"] = phase_interactive(torch)
+        # launches: the sum over the main-path runs (phase 3, each of phase
+        # 5's runs and phase 7), each counted from 0 right before the run
         for kr in kernels:
             kr["launches"] = counts.get(kr["name"], 0) + sum(
-                r["launches"][kr["name"]] for r in record["main_path"].values())
+                r["launches"][kr["name"]] for r in record["main_path"].values()
+            ) + record["interactive"]["launches"][kr["name"]]
             check(kr["launches"] > 0, f"{kr['name']} never launched on the main path")
         record["seconds"] = time.time() - t_start
         if args.profile:

@@ -35,6 +35,7 @@ from vosesam_tpu_torch.models.sam import image_encoder as tenc
 from vosesam_tpu_torch.models.sam import predictor as tpred
 from vosesam_tpu_torch.ops import image as timage
 from vosesam_tpu_torch.ops.kernels import flash_attention as tfa
+from vosesam_tpu_torch.ops.kernels import window_attention as twa
 from vosesam_tpu_torch.utils.checkpoint import load_sam_checkpoint, params_from_jax
 
 TINY = dict(model_type="vit_b", window_size=7, vit_dims=(("vit_b", 64, 2, 2, (1,)),))
@@ -90,11 +91,83 @@ def test_encoder_batch_equals_single_frames(frame):
         np.testing.assert_allclose(batch[i].numpy(), one.numpy(), atol=1e-5, rtol=1e-5)
 
 
-def test_pallas_window_impls_raise():
-    _, tc = _cfgs(image_size=128, windowed_attention_impl="pallas_mh")
-    sam = tpred.Sam(tc)
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        tpred.encode_image(sam, torch.zeros((1, H, W, 3), dtype=torch.uint8), tc)
+# the JAX package's own config for its windowed impls
+# (tests/test_flash_attention.py:97-100): a 16x16 grid, nine 7x7 windows
+WINDOW_CFG = dict(model_type="vit_b", image_size=256, window_size=7,
+                  vit_dims=(("vit_b", 96, 2, 3, (1,)),), use_flash_attention=True)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("impl", ["pallas", "pallas_mh"])
+def test_pallas_window_impls_match_jax(impl, batch):
+    """`vit_encode` with the window kernels selected: the JAX encoder runs
+    B4 / B5 in Pallas interpret mode, the port's wrapper its plain version
+    (CPU tensors), same weights, random rel-pos tables; fp32 within 2e-3,
+    the JAX kernel tests' bound."""
+    jc = JSAMConfig(**WINDOW_CFG, windowed_attention_impl=impl)
+    tc = SAMConfig(**WINDOW_CFG, windowed_attention_impl=impl)
+    rng = np.random.default_rng(11)
+    params = jax.tree.map(np.asarray, jenc.vit_init(jax.random.PRNGKey(0), jc))
+    for blk in params["blocks"].values():
+        for name in ("rel_pos_h", "rel_pos_w"):
+            blk["attn"][name] = 0.5 * rng.standard_normal(blk["attn"][name].shape
+                                                          ).astype(np.float32)
+    enc = tenc.ImageEncoderViT(tc)
+    enc.load_state_dict({k[len("image_encoder."):]: v for k, v in
+                         params_from_jax({"image_encoder": params}).items()}, strict=True)
+    x = rng.standard_normal((batch, 256, 256, 3)).astype(np.float32)
+    twa.reset_counts()
+    tfa.reset_counts()
+    with torch.no_grad():
+        got = tenc.vit_encode(enc.eval(), torch.from_numpy(x)).numpy()
+    # one windowed block and one global block, on the CPU: plain versions
+    assert twa.COUNTS["plain"] == 1 and tfa.COUNTS["plain"] == 1
+    for i in range(batch):
+        want = np.asarray(jenc.vit_encode(params, jnp.asarray(x[i]), jc))
+        np.testing.assert_allclose(got[i], want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("impl", ["xla_fused_bias", "pallas", "pallas_mh"])
+def test_one_window_frames_keep_fp32_scores(impl, monkeypatch):
+    """JAX picks the windowed path per frame: a frame that is one window
+    (b == 1 under vmap) keeps fp32 scores ("xla") whatever the impl. The
+    port's batch axis is frames x windows, so a batch of two one-window
+    frames must not take the bf16 fused path or the window kernel. bf16,
+    within 1e-2 of JAX frame by frame (about one bf16 ulp, as in
+    test_windowed_attention_matches_jax; linear biases zeroed there too)."""
+    def no_fused(*a, **k):
+        raise AssertionError("a one-window frame took the fused bf16 path")
+
+    monkeypatch.setattr(tenc, "_fused_bias_scores", no_fused)
+    jc, tc = _cfgs(image_size=112, windowed_attention_impl=impl)     # a 7x7 grid
+    params, sam = _models(jc, tc)
+    rng = np.random.default_rng(6)
+    pj = dict(params.image_encoder["blocks"]["0"]["attn"])
+    for name in ("rel_pos_h", "rel_pos_w"):
+        pj[name] = rng.standard_normal(np.shape(pj[name])).astype(np.float32)
+    for name in ("qkv", "proj"):
+        pj[name] = dict(pj[name], bias=np.zeros(np.shape(pj[name]["bias"]), np.float32))
+    attn = sam.image_encoder.blocks[0].attn
+    attn.rel_pos_h.data = torch.from_numpy(pj["rel_pos_h"])
+    attn.rel_pos_w.data = torch.from_numpy(pj["rel_pos_w"])
+    attn.qkv.bias.data.zero_()
+    attn.proj.bias.data.zero_()
+    x = 2 * rng.standard_normal((2, 7, 7, 64)).astype(np.float32)
+    pjb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), pj)
+    twa.reset_counts()
+    with torch.no_grad():
+        got = tenc._attention(torch.from_numpy(x).to(torch.bfloat16), attn.to(torch.bfloat16),
+                              (7, 7), False, tc, windows_per_frame=1)
+    for i in range(2):
+        want = np.asarray(jenc._attention(jnp.asarray(x[i:i + 1], jnp.bfloat16), pjb, 2, (7, 7),
+                                          windowed_impl=impl).astype(jnp.float32))
+        np.testing.assert_allclose(got[i:i + 1].float().numpy(), want, atol=1e-2, rtol=1e-2)
+    # and through the encoder: a batch of two 112x112 frames, one window each
+    frames = torch.from_numpy(rng.standard_normal((2, 112, 112, 3)).astype(np.float32))
+    with torch.no_grad():
+        tenc.vit_encode(sam.image_encoder.float(), frames)
+    assert twa.COUNTS == {"window_attention_relpos": 0, "window_attention_relpos_mh": 0,
+                          "plain": 0}
 
 
 @pytest.mark.parametrize("impl", ["xla", "xla_fused_bias"])

@@ -6,9 +6,8 @@ Replaces the reference's three uncoordinated config layers (YAML knobs in
 nested dicts in the notebooks, and argparse in ``track_anything.py:84-95``)
 with one frozen dataclass tree. Field names and defaults are those of the
 JAX package, so one config value means the same run in both packages; knobs
-that only steer TPU code paths (tile sizes, ``top_k_approx``,
-``windowed_attention_impl``) are kept for parity and documented where the
-port reads them.
+that only steer TPU code paths (tile sizes, ``top_k_approx``) are kept for
+parity and documented where the port reads them.
 
 ``FrameworkConfig.dtype="bfloat16"`` means bf16 activations with fp32
 parameters on the card (every layer casts its fp32 weights to the
@@ -140,11 +139,13 @@ class SAMConfig:
     window_size: int = 14
     use_flash_attention: bool = True   # Pallas flash kernel for global blocks
     # Windowed-attention implementation:
-    #   "xla"            batched einsum + broadcast bias add
+    #   "xla"            batched einsum + broadcast bias add, fp32 scores
     #   "xla_fused_bias" bias folded into the QK matmul via one-hot lanes
-    #                    (fastest measured on-chip, scripts/exp_encoder_opt.py)
-    #   "pallas"         per-(window, head) fused kernel (measured slower)
-    #   "pallas_mh"      per-window kernel, heads looped in-instance
+    #                    (plain torch in the port; the JAX package's default)
+    #   "pallas"         the hand-written whole-window kernel
+    #                    (ops/kernels/window_attention.py, counted as B4)
+    #   "pallas_mh"      the same kernel, counted as B5 (the two TPU kernels
+    #                    differ only in their grid)
     windowed_attention_impl: str = "xla_fused_bias"
     # Rectangular encode (TPU fast path): pad the model input only to the
     # next patch multiple per side instead of the official 1024x1024 square

@@ -40,6 +40,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_helpers.cuh"
+
 namespace {
 
 constexpr int kTile = 64;           // queries per block and keys per tile
@@ -48,19 +50,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;             // bf16 row padding against bank conflicts
 constexpr float kNegInit = -1e30f;  // the TPU kernel's running-max start
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using vosesam::mma_bf16;
+using vosesam::pack_bf16;
 
 // Stage the block's bias factor rows: sB[r][c] = b[(q0 + r) * g + c].
 __device__ __forceinline__ void stage_bias(float* sB, const float* b, int q0,

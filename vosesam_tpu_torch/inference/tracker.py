@@ -47,11 +47,13 @@ def track_frame(
     state: core.TrackerState,
     frame: torch.Tensor,              # (H, W, 3) uint8 RGB
     cfg: FrameworkConfig,
+    paint: bool = True,
 ):
     """One propagation frame: the XMem step, then (with refinement on) one
     SAM encode and `refine_masks`. Returns (state, indexed_mask (H, W)
-    int32, logits (1+O, H, W), scores (O,), painted (H, W, 3) uint8,
-    used_sam (O,) bool or None without refinement)."""
+    int32, logits (1+O, H, W), scores (O,), painted (H, W, 3) uint8 or,
+    with `paint=False`, the frame itself, used_sam (O,) bool or None
+    without refinement)."""
     o = cfg.xmem.max_objects
     state, prob, logits = core.step(net, state, frame, cfg)
     masks, indexed = masks_from_prob(prob, o)
@@ -65,7 +67,8 @@ def track_frame(
         indexed, scores, used_sam = res.indexed[0], res.scores[0], res.used_sam[0]
     else:
         used_sam = None
-    return state, indexed, logits, scores, paint_indexed(frame, indexed, o), used_sam
+    painted = paint_indexed(frame, indexed, o) if paint else frame
+    return state, indexed, logits, scores, painted, used_sam
 
 
 def track_first_frame(
@@ -75,6 +78,7 @@ def track_first_frame(
     mask: torch.Tensor,               # (O, H, W) one-hot
     mask_valid: torch.Tensor,         # (O,) bool
     cfg: FrameworkConfig,
+    paint: bool = True,
 ):
     """Annotation frame: GT injection, no refinement (the reference skips SAM
     on the first frame, base_tracker.py:121-131)."""
@@ -82,7 +86,8 @@ def track_first_frame(
     state, prob, logits = core.step_with_mask(net, state, frame, mask, mask_valid, cfg)
     _, indexed = masks_from_prob(prob, o)
     scores = xmem_object_scores(prob[1:])
-    return state, indexed, logits, scores, paint_indexed(frame, indexed, o)
+    painted = paint_indexed(frame, indexed, o) if paint else frame
+    return state, indexed, logits, scores, painted
 
 
 class Tracker:
@@ -94,11 +99,15 @@ class Tracker:
         cfg: FrameworkConfig,
         device: DeviceLike = None,
         sam: Optional[predictor.Sam] = None,
+        paint: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         self.net = net
         self.sam = sam
         self.cfg = cfg
+        # paint=False: `track` computes no paint and returns the frame
+        # itself in the painted slot (callers that only want masks)
+        self.paint = paint
         self.mapper = MaskMapper()
         self.state: Optional[core.TrackerState] = None
         self._frame_hw: Optional[Tuple[int, int]] = None
@@ -191,17 +200,17 @@ class Tracker:
                 valid[lbl - 1] = True
             self.state, indexed, logits, scores, painted = track_first_frame(
                 self.net, self.state, ft, torch.from_numpy(mask).to(self.device),
-                torch.from_numpy(valid).to(self.device), self._session_cfg(None))
+                torch.from_numpy(valid).to(self.device), self._session_cfg(None), self.paint)
         else:
             self._ensure_state(frame)
             self.state, indexed, logits, scores, painted, used_sam = track_frame(
-                self.net, self.sam, self.state, ft, self._track_cfg())
+                self.net, self.sam, self.state, ft, self._track_cfg(), self.paint)
             self._count_kept(used_sam)
         self._frames_tracked += 1
 
         indexed_np = indexed.cpu().numpy()
         final = self.mapper.remap_index_mask(indexed_np).astype(np.uint8)
-        return (final, logits.cpu().numpy(), painted.cpu().numpy(),
+        return (final, logits.cpu().numpy(), painted.cpu().numpy() if self.paint else frame,
                 self._live_scores(scores.cpu().numpy(), indexed_np))
 
     def _live_scores(self, scores_np: np.ndarray,

@@ -10,17 +10,20 @@ Activations are channel-last (B, H, W, C), as in the JAX package; the
 encoder takes a batch of frames. The global blocks run kernel B3
 (`ops/kernels/flash_attention.py`) whenever `use_flash_attention` is set,
 at any batch and any N; with it off they run the kernel's plain version.
-The windowed blocks are plain torch, as the JAX default "xla_fused_bias"
-is an XLA path: one QK matmul in the activations' dtype with the rel-pos
-bias folded in as extra lanes, fp32 softmax, cast to v's dtype, matmul
-("xla" keeps fp32 scores and a broadcast bias add). The Pallas window
-kernels ("pallas", "pallas_mh", B4/B5) are not ported yet.
+The windowed blocks follow `windowed_attention_impl`: "pallas" and
+"pallas_mh" run kernels B4 / B5 (`ops/kernels/window_attention.py`: fp32
+rel-pos factors, then the whole-window kernel on the strided q, k, v views
+of the fused qkv projection); the default "xla_fused_bias" is plain torch,
+as it is an XLA path in JAX: one QK matmul in the activations' dtype with
+the rel-pos bias folded in as extra lanes, fp32 softmax, cast to v's dtype,
+matmul; "xla" keeps fp32 scores and a broadcast bias add. As in JAX, a
+frame that is a single window takes the "xla" path whatever the impl.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +34,7 @@ from vosesam_tpu_torch.config import SAMConfig
 from vosesam_tpu_torch.models.layers import gelu_fast, layer_norm, linear
 from vosesam_tpu_torch.ops.image import device_const, resize_bilinear
 from vosesam_tpu_torch.ops.kernels import flash_attention as fa
+from vosesam_tpu_torch.ops.kernels import window_attention as wa
 
 
 class _Attention(nn.Module):
@@ -123,8 +127,12 @@ def factorized_rel_pos_bias(q: torch.Tensor, rel_pos_h, rel_pos_w,
 
 
 def _attention(x: torch.Tensor, attn: _Attention, hw: Tuple[int, int],
-               global_block: bool, cfg: SAMConfig) -> torch.Tensor:
-    """x (B, h, w, C) tokens of B windows (windowed) or B frames (global)."""
+               global_block: bool, cfg: SAMConfig,
+               windows_per_frame: Optional[int] = None) -> torch.Tensor:
+    """x (B, h, w, C) tokens of B windows (windowed) or B frames (global).
+    `windows_per_frame` (default: all B windows are one frame's) picks the
+    windowed path per frame, as JAX does under `vmap`: a frame of one window
+    keeps fp32 scores ("xla") whatever the impl (image_encoder.py:150-225)."""
     b, h, w, c = x.shape
     heads = attn.heads
     hd = c // heads
@@ -146,13 +154,18 @@ def _attention(x: torch.Tensor, attn: _Attention, hw: Tuple[int, int],
             out = fa.flash_attention_relpos_plain(*args)
         out = out.reshape(b, heads, n, hd).transpose(1, 2).reshape(b, n, c)
         return linear(out, attn.proj).reshape(b, h, w, c)
-    if cfg.windowed_attention_impl in ("pallas", "pallas_mh"):
-        raise NotImplementedError(
-            f"windowed_attention_impl={cfg.windowed_attention_impl!r} runs the "
-            "Pallas window kernels (B4/B5), which are not ported yet; use "
-            "'xla_fused_bias' or 'xla'")
+    impl = cfg.windowed_attention_impl
+    if (b if windows_per_frame is None else windows_per_frame) == 1:
+        impl = "xla"
+    if impl in ("pallas", "pallas_mh"):
+        bias_h, bias_w = factorized_rel_pos_bias(q, attn.rel_pos_h, attn.rel_pos_w, hw)
+        kernel = (wa.window_attention_relpos_mh if impl == "pallas_mh"
+                  else wa.window_attention_relpos)
+        out = kernel(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                     bias_h.contiguous(), bias_w.contiguous(), hw)     # (b, heads, n, hd)
+        return linear(out.transpose(1, 2).reshape(b, n, c), attn.proj).reshape(b, h, w, c)
     scale = 1.0 / math.sqrt(hd)
-    if b > 1 and cfg.windowed_attention_impl == "xla_fused_bias":
+    if impl == "xla_fused_bias":
         s = _fused_bias_scores(q, k, attn, hw, scale)
     else:
         bias_h, bias_w = factorized_rel_pos_bias(q, attn.rel_pos_h, attn.rel_pos_w, hw)
@@ -218,7 +231,8 @@ def _block(x: torch.Tensor, blk: _Block, cfg: SAMConfig) -> torch.Tensor:
     y = layer_norm(x, blk.norm1)
     if blk.window > 0:
         y, pad_hw = window_partition(y, blk.window)
-        y = _attention(y, blk.attn, (blk.window, blk.window), False, cfg)
+        y = _attention(y, blk.attn, (blk.window, blk.window), False, cfg,
+                       windows_per_frame=y.shape[0] // x.shape[0])
         y = window_unpartition(y, blk.window, pad_hw, (x.shape[1], x.shape[2]))
     else:
         y = _attention(y, blk.attn, (x.shape[1], x.shape[2]), True, cfg)

@@ -194,6 +194,45 @@ def predict_low_res(
         sparse, dense, interm_vit=emb.interm)
 
 
+class SamPrediction(NamedTuple):
+    masks: torch.Tensor        # (..., n, H, W) bool at the original resolution
+    logits_full: torch.Tensor  # (..., n, H, W) float logits at the original resolution
+    iou: torch.Tensor          # (..., n)
+    low_res: torch.Tensor      # (..., n, 4h, 4w) logits (reusable as a mask prompt)
+
+
+@torch.no_grad()
+def predict(
+    sam: Sam,
+    emb: ImageEmbedding,               # of one frame
+    coords: torch.Tensor,              # (P, 2) or (B, P, 2) original-space xy
+    labels: torch.Tensor,              # (P,) or (B, P)
+    mask_input: Optional[torch.Tensor],  # (4h, 4w) or (B, 4h, 4w) logits, or None
+    cfg: SAMConfig,
+) -> SamPrediction:
+    """One prompt pack -> all mask tokens at the original resolution
+    (predictor.py:134-163); callers pick single / multi / HQ with
+    `select_best`. With a leading batch axis, B packs on the one frame."""
+    single = coords.ndim == 2
+    if single:
+        coords, labels = coords[None], labels[None]
+        mask_input = None if mask_input is None else mask_input[None]
+    low_res, iou = predict_low_res(sam, emb, coords, labels, mask_input, cfg)
+    logits_full = postprocess_masks(low_res, emb.input_hw, emb.orig_hw)
+    pred = SamPrediction(logits_full > cfg.mask_threshold, logits_full, iou, low_res)
+    return SamPrediction(*(t[0] for t in pred)) if single else pred
+
+
+def select_best(pred: SamPrediction, cfg: SAMConfig, multimask: bool):
+    """Reference-predictor mask selection on one pack's prediction: token 0
+    when single-mask, the best IoU of tokens 1..3 with multimask, the HQ
+    token under SAM-HQ (predictor.py:218-235). Returns (mask (H, W) bool,
+    logits (H, W), score (), low_res (4h, 4w)); the index stays on the
+    device."""
+    idx = select_token(pred.iou[None], cfg, multimask)
+    return tuple(t.index_select(0, idx)[0] for t in pred)
+
+
 def postprocess_masks(low_res: torch.Tensor, input_hw: Tuple[int, int],
                       orig_hw: Tuple[int, int]) -> torch.Tensor:
     """Official Sam.postprocess_masks over (..., mh, mw): upsample x4 to the

@@ -6,8 +6,9 @@ shared library with a plain C interface,
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <src>
 
-where <hash> covers the source and the flags, so an edited source rebuilds
-and a stale library is never loaded. `build_all` starts one nvcc per source
+where <hash> covers the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header rebuilds and a stale library is never
+loaded. `build_all` starts one nvcc per source
 at once. Nothing here runs at import time: the CPU tests import every module
 on machines without nvcc.
 """
@@ -29,6 +30,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES: Dict[str, str] = {
     "memory_read": "memory_read.cu",
     "flash_attention": "flash_attention.cu",
+    "window_attention": "window_attention.cu",
 }
 
 NVCC_FLAGS = (
@@ -55,6 +57,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

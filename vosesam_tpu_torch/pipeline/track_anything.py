@@ -2,10 +2,11 @@
 `vosesam_tpu/pipeline/track_anything.py`).
 
 Reference: track_anything.py (:14-95). Builds the XMem tracker and, when
-refinement is on (or a SAM checkpoint is given), the SAM / SAM-HQ model;
-`generator` tracks frame by frame, `generator_chunked` seeds frame 0 and
-runs the rest through the chunked path. The SAM controller,
-`first_frame_click` and the inpainter come with later slices.
+refinement is on (or a SAM checkpoint is given), the SAM / SAM-HQ model with
+its click controller (`samcontroler`, the reference's spelling);
+`first_frame_click` seeds a video from clicks, `generator` tracks frame by
+frame, `generator_chunked` seeds frame 0 and runs the rest through the
+chunked path. The inpainter comes with a later slice.
 
 Weights: an official checkpoint when the path names an existing file, else
 seeded random weights with the JAX package's schemes (XMem from `seed`, SAM
@@ -16,6 +17,7 @@ evaluations must pass real checkpoints. SAM's weights are held in
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 from typing import List, Optional, Sequence, Tuple
@@ -28,6 +30,7 @@ from vosesam_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from vosesam_tpu_torch.inference.tracker import Tracker
 from vosesam_tpu_torch.models.sam.predictor import Sam, sam_init
 from vosesam_tpu_torch.models.xmem.network import XMem, xmem_init
+from vosesam_tpu_torch.pipeline.interact import SamController
 
 
 def load_or_init_xmem(checkpoint: Optional[str], cfg: XMemConfig,
@@ -79,7 +82,14 @@ class TrackingAnything:
             load_or_init_sam(sam_checkpoint, self.cfg.sam, self.device, seed + 1,
                              torch_dtype(self.cfg.dtype))
             if (self.cfg.refinement.use_refinement or sam_checkpoint) else None)
+        self.samcontroler = (SamController(self.sam, self.cfg.sam, self.device)
+                             if self.sam is not None else None)
         self.xmem = Tracker(net, self.cfg, device=self.device, sam=self.sam)
+
+    def first_frame_click(self, image: np.ndarray, points: np.ndarray, labels: np.ndarray,
+                          multimask: bool = True):
+        """track_anything.py:48-50: (mask (H, W) bool, logit, painted image)."""
+        return self.samcontroler.first_frame_click(image, points, labels, multimask)
 
     def generator(
         self, images: Sequence[np.ndarray], template_mask: np.ndarray
@@ -107,3 +117,14 @@ class TrackingAnything:
             return [m0] + masks, [p0] + painted, [s0] + scores
         masks, scores = self.xmem.track_batch(list(images[1:]), chunk=chunk)
         return [m0] + masks, [s0] + scores
+
+
+def parse_augment() -> argparse.Namespace:
+    """track_anything.py:84-95."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--sam_model_type", type=str, default="vit_h")
+    parser.add_argument("--port", type=int, default=6080)
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--mask_save", type=bool, default=False)
+    return parser.parse_args()
