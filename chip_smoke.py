@@ -30,6 +30,17 @@ Phases (each one that fails exits non-zero):
      function) and `scaled_dot_product_attention` with the dense bias, as
      device time from torch.profiler (one call is shorter than the host
      takes to launch it);
+  2d. kernel vs plain for B6 (modulated deformable 3x3 bilinear sampling):
+     the inpainter's (1, 60, 108, 256) field with 16 deform groups and
+     offsets of the model's form, `radius=None`, `radius=16` (every corner
+     fits: equal to None) and a firing `radius=6`; the contracted
+     convolution; B 2; Cin 32 / 64 / 8; integer and far-out-of-field
+     offsets; bad inputs raise; torch.profiler device times beside the bound
+     (no single PyTorch call computes the function);
+  2e. kernel vs plain for B7 (the bin-scan probe) at the probe's shapes and
+     small odd ones, then the probe's own run, counted from 0: the card's
+     multiply-add rate in the scan and the scan's projected time per
+     alignment call beside B6's;
   3. XMem end to end: `TrackingAnything` (XMem-s012 widths, default
      MemoryConfig, bf16, no refinement) tracks a 64-frame 480x854 clip with
      two objects seeded on frame 0 and a third added on frame 40;
@@ -37,8 +48,8 @@ Phases (each one that fails exits non-zero):
      the kernels and once with `MemoryConfig(fused_read=False)`;
   5. the main path: XMem + SAM-HQ vit_h refinement (`both_neg`, point
      algorithm C, the 0.94 gate, rect encode, 2 objects, bf16): `generator`
-     over 16 frames, `generator_chunked(chunk=8, paint=True)` over 33, and
-     `generator` over 4 frames with the official square encode; B3 launches
+     over 12 frames, `generator_chunked(chunk=8, paint=True)` over 25, and
+     `generator` over 3 frames with the official square encode; B3 launches
      4 per refined frame / per chunk, no plain call; one frame's
      `encode_image` + `refine_masks` under `set_sync_debug_mode("error")`;
      then the same two rect runs with the window kernel selected
@@ -56,8 +67,19 @@ Phases (each one that fails exits non-zero):
      passes), then `generate_masks(points_per_side=16)`; one encode per
      `set_image` (28 window + 4 B3 launches, no plain call); in fp32 the
      clicked mask against the same click through the plain versions.
+  8. the inpaint path: `TrackingAnything(e2fgvi_checkpoint=...)` tracks a
+     24-frame clip XMem-only, then `baseinpainter.inpaint(frames, masks,
+     ratio=0.5)` (E2FGVI-HQ at full width, fp32, 240x426 flip-padded to
+     240x432, the default `InpainterConfig`): 5 static windows, B6 launches
+     = windows x 2 x (num_local - 1), no plain call, uint8 frames equal to
+     the resized input outside the dilated mask, with cuDNN's TF32
+     convolutions as a process that sets nothing runs them; the same clip
+     with `window_batch=2` and with TF32 off; one window's
+     `generator_forward` through the kernel and through the plain sampling
+     (TF32 off); `inpaint` over 64 frames in two subsets at `num_blocks=2`.
 Kernel launch counts are set to 0 right before each main-path run (phases
-3, 5 and 7) and read right after; the `kernels` line sums them.
+3, 5, 7 and 8) and read right after; the `kernels` line sums them (B7, a
+probe on no product path, counts its own run in phase 2e).
 The last two lines are the `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -773,6 +795,222 @@ def phase_window_kernel(torch):
     return kernels, cases
 
 
+# ------------------------------------------------ B6 (deformable sampling)
+
+DEFORM_TOL = 2e-6        # patches, kernel vs plain (the JAX kernel test's value)
+DEFORM_CONV_TOL = 2e-5   # the contracted convolution (the JAX tests' value)
+
+
+def _deform_case(torch, gen, b, h, w, cin, g, flow_px, resid: float = 10.0):
+    """Features, offsets of the model's form and modulation: a `resid`*tanh
+    residual per (group, tap) plus one flow per pixel for each half of the
+    groups, bounded by `flow_px` pixels, in mmcv's (G, 9, (y, x)) layout."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x = rnd(b, h, w, cin)
+    residual = resid * torch.tanh(rnd(b, h, w, g, 9, 2))
+    flow = flow_px * torch.tanh(rnd(b, h, w, 2, 1, 1, 2)).expand(b, h, w, 2, g // 2, 9, 2)
+    offset = (residual + flow.reshape(b, h, w, g, 9, 2)).reshape(b, h, w, 2 * g * 9)
+    mask = torch.sigmoid(rnd(b, h, w, g * 9))
+    return x, offset.contiguous(), mask
+
+
+def _deform_bound(b, h, w, cin, g):
+    """Each input read once, the patches written once; ~12 fp32 operations
+    per output value (four corners times two weights, three adds, the
+    modulation)."""
+    bytes_moved = 4 * b * h * w * (cin + 3 * g * 9 + 9 * cin)
+    flops = 12 * b * h * w * 9 * cin
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_deform_kernel(torch):
+    """B6 against its plain version at the inpainter's shape (60x108x256,
+    16 groups) with radius None, 16 (every corner fits: equal to None) and a
+    firing 6, at B 2 and Cin 32 / 64, on integer and far-out-of-field
+    offsets; the contracted convolution; bad inputs raise; device times."""
+    from vosesam_tpu_torch.models.e2fgvi import modules as M
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h, w, cin, g = 60, 108, 256, 16
+    cases = []
+
+    def compare(name, x, off, msk, radius, tol=DEFORM_TOL):
+        out = da.deform_patches_bounded(x, off, msk, radius)
+        torch.cuda.synchronize()
+        ref = da.deform_patches_plain(x, off, msk, radius)
+        check(tuple(out.shape) == (*x.shape[:3], 9, x.shape[-1]) and out.dtype == torch.float32,
+              f"B6 {name}: output {tuple(out.shape)} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"B6 {name}: non-finite output")
+        err = (out - ref).abs().max().item() if out.numel() else 0.0
+        check(err <= tol, f"B6 {name}: max abs err {err} > {tol}")
+        cases.append(dict(case=name, shape=list(x.shape), groups=msk.shape[-1] // 9,
+                          radius=radius, max_abs_err=err, tol=tol))
+        return out
+
+    # the model's form: 10 tanh residual + flows of a few pixels
+    x, off, msk = _deform_case(torch, gen, 1, h, w, cin, g, flow_px=4.0)
+    out_none = compare("production radius None", x, off, msk, None)
+    out_16 = compare("production radius 16", x, off, msk, 16)
+    check(torch.equal(out_none, out_16),
+          "B6: radius 16 differs from the unbounded function although every corner fits")
+    # flows large enough that the drop rule fires
+    xl, offl, mskl = _deform_case(torch, gen, 1, h, w, cin, g, flow_px=9.0)
+    out_l = compare("large flows radius None", xl, offl, mskl, None)
+    out_6 = compare("large flows radius 6", xl, offl, mskl, 6)
+    dropped = float((out_l != out_6).float().mean())
+    check(dropped > 0.01, f"B6: the drop rule of radius 6 fired on only {dropped} of the values")
+    # the contracted convolution through the model's function
+    weight = 0.05 * torch.randn((128, cin, 3, 3), generator=gen, device="cuda")
+    bias = torch.randn((128,), generator=gen, device="cuda")
+    wmat = weight.permute(2, 3, 1, 0).reshape(9 * cin, 128)
+    conv_err = {}
+    for radius, fn in ((None, M.modulated_deform_conv),
+                       (6, lambda *a: M.modulated_deform_conv_bounded(*a, radius=6))):
+        got = fn(xl, offl, mskl, weight, bias, g)
+        want = torch.matmul(da.deform_patches_plain(xl, offl, mskl, radius).reshape(1, h, w, -1),
+                            wmat) + bias
+        conv_err[str(radius)] = (got - want).abs().max().item()
+        check(tuple(got.shape) == (1, h, w, 128) and conv_err[str(radius)] <= DEFORM_CONV_TOL,
+              f"B6 conv radius {radius}: max abs err {conv_err[str(radius)]} > {DEFORM_CONV_TOL}")
+    # batch 2, narrow groups (scalar instance at cg 2, vector instance at cg 4), odd field
+    compare("B 2", *_deform_case(torch, gen, 2, h, w, cin, g, 4.0), None)
+    compare("B 2 radius 6", *_deform_case(torch, gen, 2, h, w, cin, g, 9.0), 6)
+    compare("Cin 32 (cg 2)", *_deform_case(torch, gen, 1, 23, 37, 32, 16, 4.0), None)
+    compare("Cin 64 (cg 4) radius 3", *_deform_case(torch, gen, 2, 23, 37, 64, 16, 4.0), 3)
+    compare("G 2, Cin 8", *_deform_case(torch, gen, 1, 9, 11, 8, 2, 2.0), None)
+    # integer offsets: every sample sits on a pixel, so floor() must pick the
+    # same cell in kernel and plain, and the result is the shifted field
+    xi, offi, mski = _deform_case(torch, gen, 1, h, w, cin, g, 0.0)
+    offi = torch.round(offi / 2.0)
+    out_i = compare("integer offsets", xi, offi, mski, None, tol=0.0)
+    compare("integer offsets radius 3", xi, offi, mski, 3, tol=0.0)
+    yy = torch.arange(h, device="cuda")[:, None, None, None]
+    xx = torch.arange(w, device="cuda")[None, :, None, None]
+    tap = torch.arange(9, device="cuda")
+    o = offi.reshape(h, w, g, 9, 2).long()
+    sy, sx = yy + o[..., 0] + tap // 3 - 1, xx + o[..., 1] + tap % 3 - 1
+    inb = (sy >= 0) & (sy < h) & (sx >= 0) & (sx < w)
+    picked = xi[0].reshape(h, w, g, cin // g)[sy.clamp(0, h - 1), sx.clamp(0, w - 1),
+                                              torch.arange(g, device="cuda")[:, None]]
+    want_i = (picked * (inb.float() * mski.reshape(h, w, g, 9))[..., None]
+              ).permute(0, 1, 3, 2, 4).reshape(1, h, w, 9, cin)
+    check(torch.equal(out_i, want_i), "B6: integer offsets do not pick the shifted pixels")
+    # far outside the field on every side: zeros
+    for far in (-1000.0, 1000.0):
+        out_f = compare(f"offsets {far}", x, off + far, msk, None, tol=0.0)
+        check(not out_f.any(), f"B6: offsets {far} outside the field read non-zero")
+    check(da.deform_patches_bounded(x[:0], off[:0], msk[:0]).shape == (0, h, w, 9, cin),
+          "B6: empty batch")
+    bad = {"x dtype": (x.half(), off, msk), "offset dtype": (x, off.double(), msk),
+           "offset shape": (x, off[..., :-2], msk), "mask shape": (x, off, msk[..., :-1]),
+           "groups": (x[..., :250], off, msk), "x rank": (x[0], off, msk),
+           "devices": (x, off.cpu(), msk), "radius": (x, off, msk, -1)}
+    for what, a in bad.items():
+        try:
+            da.deform_patches_bounded(*a)
+        except (ValueError, TypeError):
+            pass
+        else:
+            raise SmokeFailure(f"B6: bad {what} did not raise")
+    log("[B6] radius None / 16 (equal) / firing 6, conv, B 2, Cin 32 / 64 / 8, integer and "
+        f"far offsets, empty batch, bad inputs raise: ok (drop rule changed {dropped:.3f} of "
+        f"the values; conv err {conv_err})")
+
+    ms = device_ms(torch, lambda: da.deform_patches_bounded(x, off, msk))
+    ms_r16 = device_ms(torch, lambda: da.deform_patches_bounded(x, off, msk, 16))
+    event_ms = time_ms(torch, lambda: da.deform_patches_bounded(x, off, msk))
+    plain_ms = device_ms(torch, lambda: da.deform_patches_plain(x, off, msk), calls=5)
+    conv_ms = device_ms(torch, lambda: M.modulated_deform_conv(x, off, msk, weight, bias, g))
+    bound_ms, bound_by = _deform_bound(1, h, w, cin, g)
+    worst = max(c["max_abs_err"] for c in cases)
+    log(f"[B6] 60x108x256, G 16: err {worst:.3g} | kernel {ms:.4f} ms device (radius 16 "
+        f"{ms_r16:.4f}; one call by CUDA events {event_ms:.3f}), plain {plain_ms:.3f}, with the "
+        f"matmul {conv_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); no library call computes it")
+    kernel = dict(name="deform_patches_bounded", route="cuda",
+                  source="vosesam_tpu_torch/csrc/deform_align.cu",
+                  replaces="vosesam_tpu/ops/pallas/deform_align.py:210",
+                  max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=None, ms_radius_16=ms_r16, event_ms=event_ms,
+                  conv_ms=conv_ms, conv_max_abs_err=conv_err, drop_rule_share=dropped,
+                  timed_by="torch.profiler device time",
+                  shape="x (1, 60, 108, 256) fp32, 16 groups, radius None")
+    da.reset_counts()
+    return kernel, cases
+
+
+# ----------------------------------------------------- B7 (bin-scan probe)
+
+BINSCAN_TOL = 1e-5   # fused multiply-adds against rounded products, <= 18 terms of O(1)
+
+
+def phase_binscan_probe(torch):
+    """B7 against its plain version at the probe's shapes (4 tiles of 512
+    rows, 16 groups of 16 channels, 9 taps, 128 bins) and at small odd ones;
+    then the probe itself (`binscan_probe.main`), counted from 0: the card's
+    multiply-add rate in the scan and the scan's projected time for one
+    alignment call beside the gather kernel's."""
+    from vosesam_tpu_torch.ops.kernels import binscan_probe as bp
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, y0, wy = bp.probe_inputs(gen)
+    out = bp.binscan_probe(x, y0, wy, bp.BINS)
+    torch.cuda.synchronize()
+    ref = bp.binscan_probe_plain(x, y0, wy, bp.BINS)
+    err = (out - ref).abs().max().item()
+    check(tuple(out.shape) == (bp.N_TILES, bp.P_TILE, bp.GROUPS * bp.CG)
+          and bool(torch.isfinite(out).all()), f"B7: output {tuple(out.shape)}")
+    check(err <= BINSCAN_TOL, f"B7: max abs err {err} > {BINSCAN_TOL}")
+    check(bool(out.any()), "B7: the scan selected nothing")
+    for p, bins, tiles, g, cg, taps in ((37, 11, 3, 4, 8, 5), (64, 1, 1, 16, 16, 9),
+                                        (8, 40, 2, 3, 1, 2), (16, 0, 1, 2, 4, 9)):
+        xs, ys, ws = bp.probe_inputs(gen, p, bins, tiles, g, cg, taps, pad=max(bins, 1))
+        got = bp.binscan_probe(xs, ys, ws, bins, groups=g)
+        torch.cuda.synchronize()
+        e = (got - bp.binscan_probe_plain(xs, ys, ws, bins, groups=g)).abs().max().item()
+        check(e <= BINSCAN_TOL, f"B7 edge P{p} bins{bins} G{g} cg{cg} taps{taps}: err {e}")
+    bad = {"y0 dtype": (x, y0.long(), wy, bp.BINS), "x dtype": (x.half(), y0, wy, bp.BINS),
+           "rows": (x[:, :bp.P_TILE + 10], y0, wy, bp.BINS), "wy shape": (x, y0, wy[:, :-1], bp.BINS),
+           "channels per group": (x[..., :48].contiguous(), y0, wy, bp.BINS)}
+    for what, a in bad.items():
+        try:
+            bp.binscan_probe(*a)
+        except (ValueError, TypeError):
+            pass
+        else:
+            raise SmokeFailure(f"B7: bad {what} did not raise")
+    plain_ms = time_ms(torch, lambda: bp.binscan_probe_plain(x, y0, wy, bp.BINS), reps=3, warmup=1)
+    # the probe's own entry point, its launches counted from 0
+    bp.reset_counts()
+    probe = bp.run_probe()
+    launches = bp.COUNTS["binscan_probe"]
+    check(launches > 0 and bp.COUNTS["plain"] == 0, f"B7: the probe's counts {bp.COUNTS}")
+    for line in bp.report(probe):
+        log(f"[B7] {line}")
+    # bound: the dense scan's multiply-adds (2 operations each) at the fp32
+    # rate; each input read once, the accumulators written once
+    fma = bp.N_TILES * bp.P_TILE * bp.BINS * bp.GROUPS * bp.CG * bp.N_TAPS
+    bytes_moved = 4 * (x.numel() + y0.numel() + wy.numel() + out.numel())
+    t_ops = 2 * fma / FP32_FLOP_PER_S * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    log(f"[B7] err {err:.3g} | kernel {probe['ms']:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{max(t_ops, t_bytes):.4f} ms; edge shapes and bad inputs: ok")
+    kernel = dict(name="binscan_probe", route="cuda",
+                  source="vosesam_tpu_torch/csrc/binscan_probe.cu",
+                  replaces="scripts/exp_vpu_binscan.py:36",
+                  launches=launches, max_abs_err=err, ms=probe["ms"], plain_ms=plain_ms,
+                  bound_ms=max(t_ops, t_bytes),
+                  bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+                  gfma_per_s=probe["gfma_per_s"], projected_align_ms=probe["projected_align_ms"],
+                  gather_align_ms=probe["gather_align_ms"], on_main_path=False,
+                  shape="x (4, 640, 256), fields (4, 512, 144), 128 bins, fp32")
+    return kernel, probe
+
+
 # ------------------------------------------------- the main path (SAM-HQ)
 
 def _main_cfg(dtype: str, rect: bool = True, kernels: bool = True, gate: bool = True,
@@ -827,7 +1065,7 @@ def _check_outputs(masks, h, w, name):
     check(set(np.unique(masks[0]).tolist()) == {0, 1, 2}, f"{name}: frame 0 labels")
 
 
-def phase_main_path(torch, n_frames: int = 16, n_chunked: int = 33, n_square: int = 4):
+def phase_main_path(torch, n_frames: int = 12, n_chunked: int = 25, n_square: int = 3):
     from vosesam_tpu_torch.inference import core
     from vosesam_tpu_torch.inference.refinement import masks_from_prob, refine_masks, \
         xmem_object_scores
@@ -956,6 +1194,203 @@ def phase_main_path(torch, n_frames: int = 16, n_chunked: int = 33, n_square: in
     del sq
     torch.cuda.empty_cache()
     return runs, init_s
+
+
+# --------------------------------------------------- the inpaint path (B6)
+
+def _inpaint_windows(drv, t: int):
+    """(generator calls, alignment launches) `Inpainter.inpaint` makes over a
+    t-frame video: every call aligns 2 * (num_local - 1) times."""
+    from vosesam_tpu_torch.pipeline.inpaint import subset_splits
+
+    n = drv.cfg.num_subset_frames
+    subsets = ([t] if t <= n else
+               [len(pre) + (b - a) + len(post) for a, b, pre, post in subset_splits(t, drv.cfg)])
+    calls = launches = 0
+    for ts in subsets:
+        for group in drv._windows(ts):
+            calls += 1
+            launches += 2 * (group[0][1] - 1)
+    return calls, launches
+
+
+def _randomise_offset_heads(torch, net, seed: int) -> None:
+    """`generator_init` zeroes the last offset convolution as the reference's
+    training starts it, which makes every group and tap sample at the flow
+    alone with a constant modulation. A trained checkpoint has residual
+    offsets per (group, tap): draw small ones, so that the sampling kernel
+    sees the model's access pattern."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for align in net.feat_prop_module.deform_align.values():
+            last = align.conv_offset[6]
+            last.weight.copy_(0.02 * torch.randn(last.weight.shape, generator=gen, device="cuda"))
+            last.bias.copy_(0.1 * torch.randn(last.bias.shape, generator=gen, device="cuda"))
+
+
+def phase_inpaint(torch, n_frames: int = 24, n_long: int = 64):
+    """The inpaint path in fp32 at full width: `TrackingAnything` tracks a
+    480x854 clip XMem-only, then `baseinpainter.inpaint(frames, masks,
+    ratio=0.5)` removes the tracked objects at 240x426 (flip-padded to
+    240x432) with the default `InpainterConfig`: static windows, reference
+    frames and the overlap blend all run. Counts are set to 0 right before
+    each counted run."""
+    from vosesam_tpu_torch.config import FrameworkConfig, InpainterConfig, RefinementConfig
+    from vosesam_tpu_torch.models.e2fgvi import generator as G
+    from vosesam_tpu_torch.models.e2fgvi import modules as M
+    from vosesam_tpu_torch.ops import morphology as morph
+    from vosesam_tpu_torch.ops.image import resize_bilinear, resize_nearest
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+    from vosesam_tpu_torch.pipeline.inpaint import Inpainter, subset_splits
+    from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
+
+    h, w = 480, 854
+    oh, ow = 240, 426
+    frames = list(moving_frames(n_long, h, w, seed=7))
+    cfg = FrameworkConfig(refinement=RefinementConfig(use_refinement=False), dtype="bfloat16")
+    t0 = time.time()
+    ta = TrackingAnything(cfg=cfg, device="cuda", seed=0, e2fgvi_checkpoint="random-weights")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    drv = ta.baseinpainter
+    check(isinstance(drv, Inpainter) and drv.cfg == InpainterConfig()
+          and next(drv.net.parameters()).is_cuda, "facade: no inpainter on the card")
+    _randomise_offset_heads(torch, drv.net, seed=11)
+    clip = frames[:n_frames]
+    masks = ta.generator(clip, seed_mask(h, w))[0]
+    ta.xmem.clear_memory()
+    check(all(set(np.unique(m).tolist()) <= {0, 1, 2} for m in masks) and masks[0].any(),
+          "inpaint: tracked masks")
+
+    def expected(fr, mk, radius):
+        """The resized input and the resized dilated mask, by the pipeline's own
+        functions on the card."""
+        f = torch.from_numpy(np.stack(fr)).to("cuda").float()
+        f = resize_bilinear(f, (oh, ow)).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        d = morph.dilate(torch.from_numpy(np.stack([m > 0 for m in mk])).to("cuda"), radius)
+        d = resize_nearest(d.float(), (oh, ow), axes=(-2, -1)).cpu().numpy() > 0
+        return f, d
+
+    def run(name, drv, fr, mk):
+        calls, want = _inpaint_windows(drv, len(fr))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        da.reset_counts()
+        t = time.perf_counter()
+        out = drv.inpaint(fr, mk, ratio=0.5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(da.COUNTS)
+        check(counts["deform_patches_bounded"] == want and counts["plain"] == 0,
+              f"{name}: B6 counts {counts}, expected {want} launches and no plain call")
+        check(len(out) == len(fr) and all(o.shape == (oh, ow, 3) and o.dtype == np.uint8
+                                          for o in out), f"{name}: output frames")
+        res, dil = expected(fr, mk, drv.cfg.dilate_radius)
+        got = np.stack(out)
+        check(bool((got[~dil] == res[~dil]).all()),
+              f"{name}: pixels outside the dilated mask differ from the resized input")
+        changed = float((got[dil] != res[dil]).mean())
+        check(dil.any() and not dil.all() and changed > 0.5,
+              f"{name}: masked share {dil.mean()}, of which changed {changed}")
+        summary = dict(frames=len(fr), generator_calls=calls, launches=counts, wall_s=wall,
+                       ms_per_window_call=wall * 1e3 / calls, ms_per_frame=wall * 1e3 / len(fr),
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       masked_share=float(dil.mean()), filled_share_changed=changed,
+                       tf32_convolutions=bool(torch.backends.cudnn.allow_tf32))
+        log(f"[inpaint] {name}: {json.dumps(summary)}")
+        return got, dil, summary
+
+    # The inpainter runs at the process's precision settings. A process that
+    # sets nothing has PyTorch's default, fp32 convolutions through cuDNN in
+    # TF32, so the counted runs use that; phase 1 turned it off for the
+    # kernel comparisons, and the clip runs once more that way.
+    import dataclasses
+
+    runs = {}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        drv.inpaint(clip[:13], masks[:13], ratio=0.5)       # warm-up, not counted
+        got, dil, runs["clip_24"] = run("clip_24", drv, clip, masks)
+        check(runs["clip_24"]["generator_calls"] == 5
+              and runs["clip_24"]["launches"]["deform_patches_bounded"] == 100,
+              f"clip_24: {runs['clip_24']}")
+        # two windows per generator call: B6 at batch 2 on the path
+        drv2 = Inpainter(cfg=dataclasses.replace(drv.cfg, window_batch=2), net=drv.net,
+                         device="cuda")
+        got2, _, runs["clip_24_window_batch_2"] = run("clip_24_window_batch_2", drv2, clip, masks)
+        check(runs["clip_24_window_batch_2"]["generator_calls"] == 3, "window_batch 2: calls")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    got_fp32, _, runs["clip_24_tf32_off"] = run("clip_24_tf32_off", drv, clip, masks)
+    for name, other in (("clip_24_tf32_off", got_fp32), ("clip_24_window_batch_2", got2)):
+        d = np.abs(other.astype(np.int32) - got.astype(np.int32))[dil]
+        runs[name]["inside_share_within_2_of_clip_24"] = float((d <= 2).mean())
+    log("[inpaint] inside the mask, share of values within 2 grey levels of clip_24: TF32 off "
+        f"{runs['clip_24_tf32_off']['inside_share_within_2_of_clip_24']}, window_batch 2 "
+        f"{runs['clip_24_window_batch_2']['inside_share_within_2_of_clip_24']}")
+
+    # one window through the kernel and through the plain sampling (TF32 off)
+    frames_f, masks_f, padded, _, _ = drv._preprocess(clip, masks, 0.5, drv.cfg.dilate_radius)
+    check(tuple(padded.shape) == (n_frames, 240, 432, 3), f"flip-pad: {tuple(padded.shape)}")
+    plan = drv._windows(n_frames)[2][0]
+    idx = torch.as_tensor(plan[0], device="cuda")
+    valid = torch.arange(len(plan[0]), device="cuda") < plan[2]
+    window = padded.index_select(0, idx)
+    da.reset_counts()
+    out_k, (ff, fb) = G.generator_forward(drv.net, window, plan[1], drv.cfg, frame_valid=valid)
+    window_ms = time_ms(torch, lambda: G.generator_forward(drv.net, window, plan[1], drv.cfg,
+                                                           frame_valid=valid), reps=3, warmup=0)
+    kernel_counts = dict(da.COUNTS)
+    kernel_sampler = M.deform_patches_bounded
+    M.deform_patches_bounded = da.deform_patches_plain
+    try:
+        da.reset_counts()
+        out_p, _ = G.generator_forward(drv.net, window, plan[1], drv.cfg, frame_valid=valid)
+        plain_window_ms = time_ms(torch, lambda: G.generator_forward(
+            drv.net, window, plan[1], drv.cfg, frame_valid=valid), reps=2, warmup=0)
+        plain_counts = dict(da.COUNTS)
+    finally:
+        M.deform_patches_bounded = kernel_sampler
+    check(kernel_counts["plain"] == 0 and kernel_counts["deform_patches_bounded"] == 4 * 20
+          and plain_counts["deform_patches_bounded"] == 0 and plain_counts["plain"] == 3 * 20,
+          f"one window: counts {kernel_counts} / {plain_counts}")
+    check(tuple(out_k.shape) == (len(plan[0]), 240, 432, 3) and bool(torch.isfinite(out_k).all())
+          and bool(torch.isfinite(ff).all()) and bool(torch.isfinite(fb).all())
+          and float(out_k.abs().max()) <= 1.0, "one window: output shape / finiteness / range")
+    d = (out_k - out_p).abs()
+    err, share = d.max().item(), float((d <= WINDOW_TOL).float().mean())
+    check(share >= 0.999, f"one window, kernel vs plain: only {share} of the values within "
+                          f"{WINDOW_TOL} (max {err})")
+    window_summary = dict(frames=len(plan[0]), num_local=plan[1], n_valid=plan[2],
+                          kernel_ms=window_ms, plain_ms=plain_window_ms,
+                          kernel_vs_plain_max_abs_err=err, share_within_tol=share, tol=WINDOW_TOL,
+                          flow_abs_max=float(torch.maximum(ff.abs().max(), fb.abs().max())))
+    log(f"[inpaint] one window (TF32 off), kernel vs plain sampling: {json.dumps(window_summary)}")
+    del ta, drv, drv2, window, padded, frames_f, masks_f, out_k, out_p
+    torch.cuda.empty_cache()
+
+    # a longer video at reduced depth: the subset split with its context frames
+    small = Inpainter(cfg=InpainterConfig(num_blocks=2, num_subset_frames=30), device="cuda",
+                      seed=2)
+    _randomise_offset_heads(torch, small.net, seed=12)
+    long_masks = []
+    for i in range(n_long):
+        m = np.zeros((h, w), np.uint8)
+        m[360:450, 40 + 4 * i:160 + 4 * i] = 1
+        long_masks.append(m)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, _, runs["long_64_two_subsets"] = run("long_64_two_subsets", small, frames, long_masks)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    check(len(subset_splits(n_long, small.cfg)) == 2, "long run: expected two subsets")
+    del small
+    torch.cuda.empty_cache()
+    launches = sum(r["launches"]["deform_patches_bounded"] for r in runs.values())
+    return dict(runs=runs, one_window=window_summary, init_s=init_s, b6_launches=launches)
+
+
+WINDOW_TOL = 1e-3   # tanh output of one window, kernel against plain sampling
 
 
 def _track_with_decisions(ta, frames, seed):
@@ -1144,7 +1579,7 @@ def _profile_frames(torch, step, n_prof: int):
     # device kernels of interest by a part of their name: the port's own
     # attention kernels and the fp32 FFMA GEMMs (the rel-pos factors)
     by_name = {}
-    for part in ("window_relpos", "flash_relpos", "ffma"):
+    for part in ("window_relpos", "flash_relpos", "ffma", "deform_patches"):
         hits = [e for e in events if part in e.key]
         by_name[part] = dict(
             ms_per_frame=sum(e.self_device_time_total for e in hits) / 1e3 / n_prof,
@@ -1178,6 +1613,27 @@ def phase_profile(torch, n_warm: int = 12, n_prof: int = 8):
         out[name] = _profile_frames(torch, lambda i: ta.xmem.track(frames[n_warm + i]), n_prof)
         del ta
         torch.cuda.empty_cache()
+    # one inpaint window (the default InpainterConfig, fp32) per profiled
+    # step, with cuDNN's TF32 convolutions (PyTorch's default) and without:
+    # "per frame" below reads "per window"
+    from vosesam_tpu_torch.pipeline.inpaint import Inpainter
+
+    drv = Inpainter(device="cuda", seed=2)
+    _randomise_offset_heads(torch, drv.net, seed=11)
+    clip = list(moving_frames(24, h, w, seed=7))
+    masks = [(add_mask(h, w, i) > 0).astype(np.uint8) for i in range(24)]
+    padded = drv._preprocess(clip, masks, 0.5, drv.cfg.dilate_radius)[2]
+    groups = drv._windows(24)
+    for name, tf32 in (("inpaint_window", True), ("inpaint_window_tf32_off", False)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            drv._predict(padded, groups[2])
+            out[name] = _profile_frames(
+                torch, lambda i: drv._predict(padded, groups[1 + i % 3]), 3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    del drv, padded
+    torch.cuda.empty_cache()
     for name, summary in out.items():
         log(f"[profile {name}] {json.dumps(summary)}")
     return out
@@ -1218,11 +1674,15 @@ def main() -> int:
         window, record["window_cases"] = phase_window_kernel(torch)
         kernels.extend(window)
         torch.cuda.empty_cache()
+        b6, record["deform_cases"] = phase_deform_kernel(torch)
+        b7, record["binscan_probe"] = phase_binscan_probe(torch)
+        torch.cuda.empty_cache()
         counts, record["e2e"] = phase_end_to_end(torch)
         record["rollout_fp32"] = phase_kernel_vs_plain_rollout(torch)
         record["main_path"], record["sam_init_s"] = phase_main_path(torch)
         record["main_fp32"] = phase_main_kernel_vs_plain(torch)
         record["interactive"] = phase_interactive(torch)
+        record["inpaint"] = phase_inpaint(torch)
         # launches: the sum over the main-path runs (phase 3, each of phase
         # 5's runs and phase 7), each counted from 0 right before the run
         for kr in kernels:
@@ -1230,6 +1690,13 @@ def main() -> int:
                 r["launches"][kr["name"]] for r in record["main_path"].values()
             ) + record["interactive"]["launches"][kr["name"]]
             check(kr["launches"] > 0, f"{kr['name']} never launched on the main path")
+        # B6: the sum over phase 8's inpaint runs, each counted from 0
+        b6["launches"] = record["inpaint"]["b6_launches"]
+        check(b6["launches"] > 0, "deform_patches_bounded never launched on the inpaint path")
+        # B7 is a probe on no product path: its launches are those of its own
+        # entry point's run in phase 2e, counted from 0 there
+        check(b7["launches"] > 0, "binscan_probe never launched in its probe run")
+        kernels.extend([b6, b7])
         record["seconds"] = time.time() - t_start
         if args.profile:
             record["profile"] = phase_profile(torch)

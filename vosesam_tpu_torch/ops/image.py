@@ -139,6 +139,35 @@ def resize_bilinear(x: torch.Tensor, out_hw: Sequence[int],
     return _resize_axis(y, aw, int(out_hw[1]))
 
 
+@functools.lru_cache(maxsize=None)
+def align_corners_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) fp32 weights of a linear resize with `align_corners=True`
+    along one axis: output i samples input i * (n_in - 1) / (n_out - 1), two
+    non-zeros per row (positions in float64, weights rounded to fp32, as the
+    JAX package builds them)."""
+    src = np.zeros((1,), np.float64) if n_out == 1 else np.linspace(0.0, n_in - 1.0, n_out)
+    i0 = np.clip(np.floor(src).astype(np.int64), 0, n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    t = src - i0
+    m = np.zeros((n_out, n_in), np.float32)
+    m[np.arange(n_out), i0] += (1.0 - t)
+    m[np.arange(n_out), i1] += t
+    return m
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
+    """Bilinear resize of (..., H, W, C) with `align_corners=True` semantics
+    (corner pixels map onto corners), as two dense contractions: E2FGVI's
+    1/4 downscale of the frames, the x2 flow upsamples of SPyNet and the
+    decoder's x2 upsamples."""
+    h, w = x.shape[-3], x.shape[-2]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    my = device_const(("align_corners", h, oh), lambda: align_corners_weights(h, oh), x.device)
+    mx = device_const(("align_corners", w, ow), lambda: align_corners_weights(w, ow), x.device)
+    rows = torch.einsum("oh,...hwc->...owc", my.to(x.dtype), x)
+    return torch.einsum("pw,...owc->...opc", mx.to(x.dtype), rows)
+
+
 def resize_nearest(x: torch.Tensor, out_hw: Sequence[int],
                    axes: Tuple[int, int] = (-3, -2)) -> torch.Tensor:
     """jax.image.resize(method="nearest"): input floor((i + 0.5) * in / out)."""

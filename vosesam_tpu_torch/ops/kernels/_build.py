@@ -31,6 +31,8 @@ SOURCES: Dict[str, str] = {
     "memory_read": "memory_read.cu",
     "flash_attention": "flash_attention.cu",
     "window_attention": "window_attention.cu",
+    "deform_align": "deform_align.cu",
+    "binscan_probe": "binscan_probe.cu",
 }
 
 NVCC_FLAGS = (

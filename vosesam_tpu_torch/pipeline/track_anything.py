@@ -6,13 +6,15 @@ refinement is on (or a SAM checkpoint is given), the SAM / SAM-HQ model with
 its click controller (`samcontroler`, the reference's spelling);
 `first_frame_click` seeds a video from clicks, `generator` tracks frame by
 frame, `generator_chunked` seeds frame 0 and runs the rest through the
-chunked path. The inpainter comes with a later slice.
+chunked path. With `e2fgvi_checkpoint=` the facade also holds the E2FGVI
+video inpainter as `baseinpainter` (`pipeline/inpaint.py`): track, then
+`baseinpainter.inpaint(frames, masks)` removes the tracked objects.
 
 Weights: an official checkpoint when the path names an existing file, else
 seeded random weights with the JAX package's schemes (XMem from `seed`, SAM
-from `seed + 1`, mirroring the JAX facade's PRNGKey(0) / PRNGKey(1)); real
-evaluations must pass real checkpoints. SAM's weights are held in
-`cfg.dtype`.
+from `seed + 1`, mirroring the JAX facade's PRNGKey(0) / PRNGKey(1); the
+inpainter from `seed + 2`); real evaluations must pass real checkpoints.
+SAM's weights are held in `cfg.dtype`, the inpainter's in fp32.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ class TrackingAnything:
         cfg: Optional[FrameworkConfig] = None,
         device: DeviceLike = None,
         seed: int = 0,
+        e2fgvi_checkpoint: Optional[str] = None,
     ) -> None:
         self.cfg = cfg or FrameworkConfig()
         self.device = resolve_device(device)
@@ -85,6 +88,12 @@ class TrackingAnything:
         self.samcontroler = (SamController(self.sam, self.cfg.sam, self.device)
                              if self.sam is not None else None)
         self.xmem = Tracker(net, self.cfg, device=self.device, sam=self.sam)
+        self.baseinpainter = None
+        if e2fgvi_checkpoint:
+            from vosesam_tpu_torch.pipeline.inpaint import Inpainter
+
+            self.baseinpainter = Inpainter(e2fgvi_checkpoint, self.cfg.inpainter,
+                                           device=self.device, seed=seed + 2)
 
     def first_frame_click(self, image: np.ndarray, points: np.ndarray, labels: np.ndarray,
                           multimask: bool = True):

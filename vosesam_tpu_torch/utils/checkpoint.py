@@ -1,17 +1,22 @@
-"""XMem and SAM weights into the port (counterpart of
+"""XMem, SAM and E2FGVI weights into the port (counterpart of
 `vosesam_tpu/utils/checkpoint.py`).
 
-The port's `XMem` and `Sam` modules use the official state-dict names
-(XMem-s012; segment_anything / sam_hq), so
+The port's `XMem`, `Sam` and `InpaintGenerator` modules use the official
+state-dict names (XMem-s012; segment_anything / sam_hq; E2FGVI-HQ), so
   - `load_xmem_checkpoint` reads an official `.pth` straight in, with the
     same dim inference (network.py:134-182) and 4 -> 5 input-channel surgery
     of the value encoder (network.py:184-198) as the JAX loader;
   - `load_sam_checkpoint` reads an official `sam_vit_*` / `sam_hq_vit_h`
     `.pth` (the `image_encoder.` / `prompt_encoder.` / `mask_decoder.` keys);
+  - `load_e2fgvi_checkpoint` reads an official `E2FGVI-HQ-CVPR22.pth` or
+    `E2FGVI-CVPR22.pth` (under its `netG` key when it has one; SPyNet's
+    `mean` / `std` buffers, constants in the port, are dropped);
   - `params_from_jax` turns a JAX parameter tree (nested dicts of numpy
-    arrays: the XMem tree, or `SamParams`) into the same state dict: conv
+    arrays: the XMem tree, the E2FGVI generator tree, or `SamParams`) into
+    the same state dict: conv
     HWIO -> OIHW, conv-transpose HWIO -> IOHW, linear (in, out) -> (out, in),
-    embedding tables and other leaves as they are, `key_encoder.layer1.` ->
+    embedding tables and other leaves as they are, the non-HQ E2FGVI
+    `sc.bias` (H, W, C) -> the official (C, H, W), `key_encoder.layer1.` ->
     the official `key_encoder.res2.`, and `num_batches_tracked` beside every
     batch norm.
 All results load with `load_state_dict(strict=True)`.
@@ -49,8 +54,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 
 def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
-    """JAX XMem parameter tree or `SamParams` (numpy leaves) -> the port's
-    state dict."""
+    """JAX XMem or E2FGVI parameter tree, or `SamParams` (numpy leaves) ->
+    the port's state dict."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):     # SamParams
         tree = dict(zip(_SAM_PARTS, tree))
     sd: Dict[str, torch.Tensor] = {}
@@ -60,6 +65,8 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
         arr = np.array(arr, np.float32)
         if key in _CONV_TRANSPOSE:                         # HWIO -> IOHW
             arr = np.transpose(arr, (2, 3, 0, 1))
+        elif key == "sc.bias":                             # HWC -> CHW
+            arr = np.transpose(arr, (2, 0, 1))
         elif key.endswith(".weight") and arr.ndim == 4:    # HWIO -> OIHW
             arr = np.transpose(arr, (3, 2, 0, 1))
         elif (key.endswith(".weight") and arr.ndim == 2
@@ -133,3 +140,16 @@ def load_sam_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: torch.as_tensor(v).float() for k, v in sd.items()
             if k.split(".", 1)[0] in _SAM_PARTS}
+
+
+def load_e2fgvi_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read an E2FGVI generator `.pth` (inpainter/base_inpainter.py:23 loads
+    it straight into InpaintGenerator) into a state dict for
+    `InpaintGenerator` (fp32). Both variants load: the HQ file carries
+    `sc.bias_conv.*`, the original E2FGVI file the learned (C, 60, 108)
+    `sc.bias`; build the module with the matching `InpainterConfig.hq`."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "netG" in sd:
+        sd = sd["netG"]
+    return {k: torch.as_tensor(v).float() for k, v in sd.items()
+            if k not in ("update_spynet.mean", "update_spynet.std")}
