@@ -12,8 +12,11 @@ Phases (each one that fails exits non-zero):
   2. kernel vs plain: the fused memory read in both modes (B1 shared
      validity, B2 per-object validity) at the DAVIS-480p production shapes
      (Q 1620, M 17 200, Ck 64, Cv 512, O 2, k 30, bf16 keys/values) and at
-     the edge cases, held against the plain PyTorch version; CUDA-event
-     timings (median of 25 after warm-up) beside the bound;
+     the edge cases, held against the plain PyTorch version; two calls on
+     the same inputs give bit-equal usage and readout; CUDA-event timings
+     (median of 25 after warm-up) and device time beside the bound (and the
+     bound at the tensor-core rate of the similarity the kernels compute);
+     each kernel instance's registers, shared memory and blocks per SM;
   2b. kernel vs plain for B3 (global attention with factorised rel-pos
      bias): vit_h's 16 heads, D 80, on the square (64x64), rect (36x64) and
      fixed (28x56) grids, B 1 and 8, bf16 and fp32, plus edge cases (N not a
@@ -25,11 +28,13 @@ Phases (each one that fails exits non-zero):
      windows, D 80, at the rect grid's 15 windows per frame and the square
      grid's 25, B 1 and 8, bf16 and fp32, on the strided q / k / v views the
      encoder passes, plus edge cases (5x9 and 7x7 windows, D 64 / 37 / 128,
-     3 heads, one window, bad shapes raise); timings of the kernel, the
+     3 heads, one window, bad shapes raise; T 196, 45, 49, 64, 65 and 256
+     cover a ragged last 64-key chunk and none); timings of the kernel, the
      plain version, B3's kernel at BH = W * heads and N 196 (the same
      function) and `scaled_dot_product_attention` with the dense bias, as
      device time from torch.profiler (one call is shorter than the host
-     takes to launch it);
+     takes to launch it); each instance's registers, shared memory and
+     blocks per SM;
   2d. kernel vs plain for B6 (modulated deformable 3x3 bilinear sampling):
      the inpainter's (1, 60, 108, 256) field with 16 deform groups and
      offsets of the model's form, `radius=None`, `radius=16` (every corner
@@ -101,8 +106,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 BF16_TOL = 5e-3    # readout, bf16 keys/values (the JAX kernel tests' value)
+BF16_FLOP_PER_S = 989e12
 FP32_TOL = 1e-4    # readout, fp32 inputs
 USAGE_REL = 1e-4   # usage, relative to the largest usage (fixed-order sums)
+
+
+# registers, shared memory and resident blocks per SM of the redesigned
+# kernels' instances, as the card reports them (kept in the --out record)
+OCCUPANCY = {}
 
 
 class SmokeFailure(Exception):
@@ -286,18 +297,28 @@ def phase_kernels(torch):
         torch.cuda.synchronize()
         ref_out, ref_use = plain()
         err, uerr = _compare_read(torch, name, out, use, ref_out, ref_use, BF16_TOL)
+        # determinism: the same inputs give bit-equal usage (and readout)
+        out2, use2 = kern()
+        check(torch.equal(use, use2) and torch.equal(out, out2),
+              f"{name}: two calls on the same inputs differ")
         ms = time_ms(torch, kern)
         plain_ms = time_ms(torch, plain)
-        # the kernels alone, on a precomputed similarity
-        sim = get_similarity(case["mk"], case["ms"], case["qk"], case["qe"])
+        # the launches alone, without the wrapper's checks: with the
+        # similarity fused there is nothing else to take out
         shared = name == "fused_memory_read_shared"
+        check(mr._tensor_cores(case["mk"], case["qk"], case["qe"]),
+              f"{name}: bf16 keys did not take the tensor cores")
         kernel_only_ms = time_ms(torch, lambda: mr._launch(
-            sim, valid_rows, case["mv"], k, live, shared, float(o) if shared else 1.0, True))
+            case["mk"], case["ms"], case["qk"], case["qe"], valid_rows, case["mv"], k, live,
+            shared, float(o) if shared else 1.0, True))
+        device = device_ms(torch, kern, calls=10)
         # bound: each input read once and each output written once, over
         # the slots this run's data needs (< need), and the operations it
         # does: the fp32 similarity (4 Q need Ck) plus the readout of the
         # admitted slots (2 Cv per admitted (row, object, slot))
+        sim = get_similarity(case["mk"], case["ms"], case["qk"], case["qe"])
         aff_admitted = _admitted(torch, sim, valid_rows, need, k)
+        del sim
         n_admitted = aff_admitted * (o if shared else 1)
         bytes_moved = (need * ck * 2 + need * 4 + 2 * q * ck * 2
                        + o * need * cv * 2 + valid_rows.shape[0] * need
@@ -305,15 +326,30 @@ def phase_kernels(torch):
         flops = 4 * q * need * ck + 2 * n_admitted * cv
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
+        # the same work as this design does it: the four split products
+        # (2 Q need 4 Ck) at the bf16 tensor-core rate, the readout in fp32
+        t_tc = (2 * q * need * 4 * ck / BF16_FLOP_PER_S
+                + 2 * n_admitted * cv / FP32_FLOP_PER_S) * 1e3
         results.append(dict(
             name=name, route="cuda", source="vosesam_tpu_torch/csrc/memory_read.cu",
             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes > t_ops else "operations",
-            library_ms=None, kernel_only_ms=kernel_only_ms, usage_max_abs_err=uerr,
+            library_ms=None, kernel_only_ms=kernel_only_ms, device_ms=device,
+            bound_tensor_core_ms=max(t_bytes, t_tc), usage_max_abs_err=uerr,
+            usage_bit_equal_across_calls=True,
             bound_slots=need, admitted_per_row=aff_admitted / (q * valid_rows.shape[0])))
-        log(f"[kernels] {name}: err {err:.3g} usage err {uerr:.3g} | {ms:.3f} ms "
-            f"(kernels alone {kernel_only_ms:.3f}) vs plain {plain_ms:.3f} ms, bound "
-            f"{max(t_bytes, t_ops):.3f} ms ({results[-1]['bound_by']})")
+        log(f"[kernels] {name}: err {err:.3g} usage err {uerr:.3g} (two calls bit-equal) | "
+            f"{ms:.3f} ms (kernels alone {kernel_only_ms:.3f}, device {device:.3f}) vs plain "
+            f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.3f} ms ({results[-1]['bound_by']}),"
+            f" at the tensor-core rate {max(t_bytes, t_tc):.4f} ms")
+    OCCUPANCY["memory_read"] = {
+        **{f"{kern} (bf16 keys, tensor cores; bf16 values)": mr.occupancy(kern)
+           for kern in ("select", "apply", "select_2", "apply_2")},
+        **{f"{kern} (fp32 keys and values)": mr.occupancy(kern, False, ck, torch.float32)
+           for kern in ("select", "apply")},
+        "finish": mr.occupancy("finish"), "usage": mr.occupancy("usage")}
+    for inst, occ in OCCUPANCY["memory_read"].items():
+        log(f"[kernels] occupancy {inst}: {json.dumps(occ)}")
 
     _edge_cases(torch, mr, gen)
     return results
@@ -517,7 +553,6 @@ def phase_kernel_vs_plain_rollout(torch, n_frames: int = 16, add_at: int = 8):
 
 BF16_ATTN_TOL = 2e-2   # B3 output, bf16 q/k/v (bf16 probabilities in the AV product)
 FP32_ATTN_TOL = 2e-3   # B3 output, fp32 (the JAX kernel test's value)
-BF16_FLOP_PER_S = 989e12
 # Special-function results (exp2, log2, rcp, rsqrt, sin, cos) per SM per
 # clock on compute capability 9.0: the CUDA C++ Programming Guide's table of
 # arithmetic-instruction throughput. Only for the exp-floor estimate below,
@@ -746,9 +781,12 @@ def phase_window_kernel(torch):
                         f"{row['ms']:.3f} ms device, bound {row['bound_ms']:.4f}")
                 cases.append(row)
                 del args, out, out_mh, ref
+    # the key chunks are 64 wide: T 196 (above) ends in a 4-key chunk; 5x9
+    # and 7x7 are one ragged chunk; 8x8 and 16x16 have no ragged chunk; 5x13
+    # ends in one key
     for w, hd_, ewh, eww, dd in ((3, 2, 5, 9, 64), (3, 4, 5, 9, 80), (2, 3, 7, 7, 37),
                                  (1, 3, 14, 14, 128), (2, 2, 16, 16, 64), (1, 1, 1, 1, 8),
-                                 (2, 2, 8, 14, 72)):
+                                 (2, 2, 8, 14, 72), (2, 3, 8, 8, 80), (2, 3, 5, 13, 80)):
         for dtype, tol in ((torch.bfloat16, BF16_ATTN_TOL), (torch.float32, FP32_ATTN_TOL)):
             for strided in (True, False):
                 args = _window_case(torch, gen, w, hd_, ewh, eww, dd, dtype, strided)
@@ -773,8 +811,14 @@ def phase_window_kernel(torch):
             pass
         else:
             raise SmokeFailure(f"B4/B5: bad {what} did not raise")
-    log("[B4/B5] edge cases: 5x9 / 7x7 / 16x16 / 8x14 / 1x1 windows, D 64 / 80 / 37 / 128 / "
-        "72 / 8, 3 heads, one window, strided and contiguous, fp32 + bf16, bad inputs raise: ok")
+    log("[B4/B5] edge cases: 5x9 / 7x7 / 16x16 / 8x14 / 8x8 / 5x13 / 1x1 windows, D 64 / 80 / "
+        "37 / 128 / 72 / 8, 3 heads, one window, strided and contiguous, fp32 + bf16, bad inputs "
+        "raise: ok")
+    OCCUPANCY["window_attention"] = {
+        f"{dt} D {dd}": wa.occupancy(getattr(torch, dt), (wh, ww), dd)
+        for dt in ("bfloat16", "float32") for dd in (16, 32, 48, 64, 80, 96, 112, 128)}
+    for inst, occ in OCCUPANCY["window_attention"].items():
+        log(f"[B4/B5] occupancy 14x14 {inst}: {json.dumps(occ)}")
     per_frame = next(c for c in cases if c["grid"] == "rect" and c["batch"] == 1
                      and c["dtype"] == "bfloat16")
     worst = max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16")
@@ -1704,6 +1748,7 @@ def main() -> int:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     record["kernels"] = kernels
+    record["occupancy"] = OCCUPANCY
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,36 +1,73 @@
-// Fused XMem memory read for Hopper (sm_90a): exact top-k threshold ->
-// sparse softmax -> value readout, plus the per-slot usage column sums.
+// Fused XMem memory read for Hopper (sm_90a): the similarity, an exact
+// top-k threshold, the sparse softmax and the value readout, plus the
+// per-slot usage column sums, without the (Q, M) similarity ever reaching
+// device memory.
 //
 // Replaces the Pallas TPU kernels in vosesam_tpu/ops/pallas/memory_read.py:
 //   fused_memory_read_shared (one validity row shared by every object)
 //   fused_memory_read        (one validity row per object)
-// Both are one kernel here: R validity rows, R = 1 (shared mode, the block
-// reads out all O objects against one threshold) or R = O (per-object mode,
-// the block reads out object r only). The (Q, M) fp32 similarity comes from
-// a torch.matmul in the Python wrapper, as the JAX package leaves it to XLA.
+// Both are one set of kernels here: R validity rows, R = 1 (shared mode,
+// every object read out against one threshold) or R = O (per-object mode,
+// validity row r reads out object r).
 //
-// What bounds it on the H100: the similarity, (Q, M) fp32 = 111 MB at DAVIS
-// 480p (Q = 1620, M = 17 200), which this design streams three times (top-k
-// scan, admission scan, usage column sums) — about 0.1 ms of HBM traffic at
-// 3.35 TB/s, against 35 MB of bf16 values of which only ~k rows per query
-// are touched. The design therefore never forms the dense (Q, M) affinity
-// and never multiplies by it:
-//   memory_read_rows, one block per (query row, validity row):
-//     phase A  each thread keeps a sorted top-32 of its strided slice of the
-//              row in registers; k rounds of a block-wide argmax merge give
-//              the exact k-th value (counting duplicates, as lax.top_k) and
-//              the row max. Slots >= live_end are never read.
-//     phase B  a second scan admits sim >= threshold && valid, compacts the
-//              admitted (index, exp(sim - max)) pairs into shared memory
-//              with a warp ballot, and gathers those ~k rows of the values
-//              into the fp32 output. The denominator is the sum of the
-//              admitted weights (ops/memory_attention.py:topk_softmax).
-//   memory_read_usage, one thread column per memory slot: sums
-//     exp(sim - max) / denominator over the query rows in a fixed order —
-//     deterministic, no float atomics, so consolidation's prototype choice
-//     (memory/manager.py) does not change from run to run.
-// Rows with fewer than k valid slots get a NEG_INF threshold and admit every
-// valid slot; a row with no valid slot reads out zeros.
+// The similarity (ops/memory_attention.py:get_similarity)
+//   sim = (-sum_c qe mk^2 + 2 sum_c qe qk mk - sum_c qe qk^2) * ms / sqrt(Ck)
+// is rebuilt in the kernel as sim = (a . b_m + rb_q) * cs_m / sqrt(Ck) from
+// operands the kernel builds (memory_read.py:similarity_operands is their
+// torch form):
+//   bf16 keys (the main path), tensor cores: a = [-qe, -qe, 2 p_hi, 2 p_lo]
+//     with p = qe * qk, exact in fp32, split into bf16 p_hi + p_lo with no
+//     loss; b_m = [sq_hi, sq_lo, mk, mk] with mk^2 (exact in fp32) split the
+//     same way as a chunk of keys arrives in shared memory. Every product is
+//     exact, so the depth-4Ck mma.sync m16n8k16 product with fp32
+//     accumulation equals the fp32 version up to summation order (qe = None:
+//     a = [-1, -1, 2 qk, 0]).
+//   other inputs (the fp32 checks): the kernels read the (Q, M) similarity
+//     get_similarity computed, so that they select from the same values as
+//     the plain chain. An FFMA similarity in the kernel differs from
+//     cuBLAS's in the last bits, and random-weight XMem amplified that past
+//     the fp32 rollout's share bounds (PERF.md, PR 5).
+//
+// What bounds it on the H100: operations. The first design read a torch
+// similarity, (Q, M) fp32 = 111 MB at DAVIS 480p (Q = 1620, M = 17 200),
+// four times and more (its production, the top-k scan, the admission scan,
+// the usage column sums: > 0.5 GB per call, ~16x the bound), and ran one
+// block per query row with 60 block barriers for its k argmax rounds. Here
+// a block of 4 warps owns 16 query rows, one or two validity rows and one of
+// S splits of the memory axis (S as large as keeps every block in one round
+// of the card's resident blocks), and streams its slots in chunks of 64
+// through a three-stage cp.async ring, one block barrier a chunk. A warp
+// computes 16 rows x 16 slots of each chunk's similarity on the tensor
+// cores, and the values never leave its registers:
+//   memory_read_pass<select>  every lane keeps top-12 lists of its slots for
+//     its two rows (an insertion only when a warp has a value that beats a
+//     list's last); at the end the 4 lanes, then the 4 warps of a row merge
+//     them into the split's exact top 32, written to a (R, Q, S, 32)
+//     scratch. If a lane's list filled up with values that reach the split's
+//     32nd, the split is scanned again with top-32 lists.
+//   memory_read_pass<apply>  merges the S lists of each row (one list a
+//     lane) into the row max and the exact k-th value (duplicates counted as
+//     lax.top_k), and the softmax denominator from the picks and the
+//     remaining ties (if a split's list ended in a tie of the threshold, one
+//     scan over the whole memory recomputes the denominator); then
+//     recomputes its tiles (bit for bit the same values), admits sim >=
+//     threshold && valid, writes the normalised affinity's column sums
+//     (lane shuffles in a fixed order) as this (row tile, validity rows)'s
+//     usage partial, and keeps the admitted (slot, affinity) entries of each
+//     (row, warp) in shared memory, 16 at most before they are read out into
+//     a readout partial; the entries go to a small scratch at the end.
+//   memory_read_finish  reads out the kept entries (fp32 weights times bf16
+//     or fp32 values) and adds the partials, in split and warp order.
+//   memory_read_usage  adds the usage partials over the row tiles in a
+//     fixed order.
+// Deterministic throughout, no float atomics, so consolidation's prototype
+// choice (memory/manager.py) does not change from run to run. Rows with
+// fewer than k valid slots get a NEG_INF threshold and admit every valid
+// slot; a row with no valid slot reads out zeros.
+// vosesam_memory_read_occupancy reports each instance's registers, shared
+// memory and resident blocks per SM on the card.
+// Built with -DVOSESAM_PROFILE, thread 0 of every block stamps the global
+// timer at the ends of its phases (python -m vosesam_tpu_torch.ops.kernels.phases).
 //
 // Plain C interface (bound with ctypes); the launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -40,24 +77,150 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_helpers.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using vosesam::cp_async16;
+using vosesam::cp_async_commit;
+using vosesam::cp_async_wait;
+using vosesam::ldmatrix_x4;
+using vosesam::mma_bf16;
+
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 32;
-constexpr float kNegInf = -1e30f;  // ops/memory_attention.py NEG_INF
-constexpr int kColTile = 32;
-constexpr int kRowGroups = 8;
+constexpr int kRows = 16;               // query rows per block (one mma m-tile)
+constexpr int kChunk = 64;              // memory slots per streamed chunk
+constexpr int kSub = kThreads / kRows;  // threads per query row in the selection
+constexpr int kMaxK = 32;               // list length: top_k <= 32
+constexpr int kLane = 12;               // a lane's list in the select scan's first try
+constexpr int kMaxSplits = 8;           // one split list per lane of a row in the merge
+constexpr int kCap = 16;                // admitted entries per (row, warp) before a flush
+constexpr int kBlocksPerSm = 4;         // launch bounds: registers for 4 blocks an SM
+constexpr float kNegInf = -1e30f;       // ops/memory_attention.py NEG_INF
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Warp argmax of (v, id): the larger value wins, ties go to the smaller id.
-__device__ __forceinline__ void warp_argmax(float& v, int& id) {
+#ifdef VOSESAM_PROFILE
+// per block of the apply kernel (select: + 8): start, threshold ready, pass
+// done, gather done, ns waiting for chunks, ns in tiles, chunks (ns)
+__device__ unsigned long long g_prof[1 << 16][16];
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+#define PROF_ID (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z))
+#define PROF_SET(slot, v)                                        \
+  do {                                                           \
+    if (threadIdx.x == 0 && PROF_ID < (1 << 16)) g_prof[PROF_ID][slot] = (v); \
+  } while (0)
+#define PROF_ADD(slot, v)                                        \
+  do {                                                           \
+    if (threadIdx.x == 0 && PROF_ID < (1 << 16)) g_prof[PROF_ID][slot] += (v); \
+  } while (0)
+#define PROF_NOW() now_ns()
+#else
+#define PROF_SET(slot, v) do {} while (0)
+#define PROF_ADD(slot, v) do {} while (0)
+#define PROF_NOW() 0ull
+#endif
+
+struct Params {
+  const void* qk;            // (Q, Ck) bf16 (tensor cores) or fp32
+  const void* qe;            // (Q, Ck) selection or null
+  const void* mk;            // (M, Ck) bf16 keys (tensor cores)
+  const float* sim;          // (Q, M) fp32 similarity (other inputs)
+  const float* cs;           // (M,) column scale (shrinkage) or null
+  const uint8_t* valid;      // (R, M) 0/1
+  const void* mv;            // (O, M, Cv)
+  float* out;                // (O, Q, Cv) fp32
+  float* lists;              // (R, Q, S, 32) split top-32 lists
+  int* ecount;               // (R, S, Q, warps) admitted entries kept per (row, warp)
+  int* eslot;                // (R, S, Q, warps, kCap) their slots
+  float* eaff;               // (R, S, Q, warps, kCap) their affinities
+  float* rpart;              // (R, S, Q, warps, n_feat) readout partials of flushed lists
+  int* rflag;                // (R, S, Q, warps) 1 where a readout partial was written
+  float* upart;              // (R, Q tiles, M) usage partials
+  int Q, M, ck, live_end, O, Cv, k, R, shared_mode, n_feat, splits, cps, n_chunks;
+};
+
+// bf16 elements of one stage: a chunk of keys, rows padded by 8
+// (conflict-free ldmatrix rows)
+template <int CK>
+constexpr int kStageElems = kChunk * (CK + 8);
+constexpr int kStages = 3;  // key chunks in flight or in use
+
+// Shared-memory layout of one block (bytes from the start).
+struct Layout {
+  int stage, a, cs, vd, rb, work, total;
+};
+
+__host__ __device__ inline Layout layout(bool tc, int ck, int rg) {
+  Layout L;
+  int off = 0;
+  L.stage = off;
+  off += tc ? kStages * kChunk * (ck + 8) * 2 : 0;
+  L.a = off;  // the query operand: bf16 (16, 4 Ck + 8)
+  off += tc ? kRows * (4 * ck + 8) * 2 : 0;
+  L.cs = off;
+  off += kStages * kChunk * 4;
+  L.vd = off;  // validity bytes of the block's validity rows, a stage each
+  off += kStages * rg * kChunk;
+  L.rb = off;
+  off += 4 * rg * kRows * 4;  // the row term, then threshold, max, denominator
+  L.work = off;  // select: the warps' per-row lists; apply: the admitted entries
+  const int lists = kWarps * kRows * kMaxK * 4 + kWarps * kRows * 4 * 4;
+  const int entries = rg * kWarps * kRows * kCap * 8;
+  off += lists > entries ? lists : entries;
+  L.total = off;
+  return L;
+}
+
+template <typename T>
+__device__ __forceinline__ T group_sum(T v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_down_sync(0xffffffffu, v, off);
-    int oid = __shfl_down_sync(0xffffffffu, id, off);
+  for (int off = 1; off < kSub; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The squares of a bf16 pair (exact in fp32) as bf16 hi and lo pairs:
+// hi = bf16(x^2), lo = bf16(x^2 - hi), and hi + lo == x^2 exactly.
+__device__ __forceinline__ void square_split2(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  const float a = __low2float(v), b = __high2float(v);
+  const float sa = a * a, sb = b * b;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(sa, sb);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(sa - __low2float(h), sb - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Insert s into a descending register list (compare-exchange down the list).
+template <int N>
+__device__ __forceinline__ void insert(float (&top)[N], float s) {
+  if (s > top[N - 1]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float h = fmaxf(top[i], s);
+      s = fminf(top[i], s);
+      top[i] = h;
+    }
+  }
+}
+
+
+// W-lane group argmax of (v, id) among adjacent lanes: the larger value
+// wins, ties go to the smaller id.
+template <int W>
+__device__ __forceinline__ void lanes_argmax(float& v, int& id) {
+#pragma unroll
+  for (int off = 1; off < W; off <<= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oid = __shfl_xor_sync(0xffffffffu, id, off);
     if (ov > v || (ov == v && oid < id)) {
       v = ov;
       id = oid;
@@ -65,208 +228,732 @@ __device__ __forceinline__ void warp_argmax(float& v, int& id) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) memory_read_rows(
-    const float* __restrict__ sim,      // (Q, M) fp32
-    const uint8_t* __restrict__ valid,  // (R, M) 0/1
-    const T* __restrict__ mv,           // (O, M, Cv)
-    float* __restrict__ out,            // (O, Q, Cv) fp32
-    float* __restrict__ th_out,         // (R, Q) threshold
-    float* __restrict__ max_out,        // (R, Q) row max
-    float* __restrict__ linv_out,       // (R, Q) 1 / denominator
-    int Q, int M, int live_end, int O, int Cv, int k, int shared_mode) {
-  __shared__ float s_val[kWarps];
-  __shared__ int s_id[kWarps];
-  __shared__ float s_pick;
-  __shared__ int s_winner;
-  __shared__ int s_cnt[kWarps];
-  __shared__ int s_idx[kThreads];
-  __shared__ float s_w[kThreads];
+// The head of the W adjacent lanes' lists (all of them get it); the lane
+// that held it pops it.
+template <int W, int N>
+__device__ __forceinline__ float lanes_pop(float (&top)[N], int me) {
+  float v = top[0];
+  int id = me;
+  lanes_argmax<W>(v, id);
+  if (id == me) {
+#pragma unroll
+    for (int i = 0; i < N - 1; ++i) top[i] = top[i + 1];
+    top[N - 1] = kNegInf;
+  }
+  return v;
+}
 
-  const int q = blockIdx.x;
-  const int r = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float* srow = sim + (size_t)q * M;
-  const uint8_t* vrow = valid + (size_t)r * M;
+// RG validity rows per block (1, or 2 in per-object mode): they share every
+// similarity tile. A lane's similarities stay in registers in the mma
+// accumulator layout: rows g and g + 8 of the block, slots warp * 16 +
+// nt * 8 + t4 * 2 + e of the chunk, sim[h][nt * 2 + e].
+template <bool TC, int CK, typename TV, bool APPLY, int RG>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) memory_read_pass(Params p) {
+  constexpr int KS = TC ? CK / 16 : 1;  // 16-deep mma steps per operand section
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ck = TC ? CK : p.ck;
+  const Layout L = layout(TC, ck, RG);
+  float* sCs = reinterpret_cast<float*>(smem + L.cs);
+  uint8_t* sVd = smem + L.vd;  // [kStages][RG][kChunk]
+  float* sRb = reinterpret_cast<float*>(smem + L.rb);  // [kRows]
+  float* sTh = sRb + kRows;                             // [RG][kRows]
+  float* sMx = sTh + RG * kRows;                        // [RG][kRows]
+  float* sDen = sMx + RG * kRows;                       // [RG][kRows]
 
-  // ---- phase A: per-thread sorted top-32, descending, in registers.
-  float top[kMaxK];
-#pragma unroll
-  for (int i = 0; i < kMaxK; ++i) top[i] = kNegInf;
-  for (int m = tid; m < live_end; m += kThreads) {
-    float s = vrow[m] ? srow[m] : kNegInf;
-    if (s > top[kMaxK - 1]) {
-#pragma unroll
-      for (int i = 0; i < kMaxK; ++i) {  // insertion by compare-exchange
-        float hi = fmaxf(top[i], s);
-        s = fminf(top[i], s);
-        top[i] = hi;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;        // mma layout
+  const int row = tid / kSub, sub = tid % kSub;  // row layout: 8 lanes a row
+  const int q0 = blockIdx.x * kRows;
+  const int split = blockIdx.y;
+  const int r0 = blockIdx.z * RG;  // first validity row of the block
+  const bool row_live = q0 + row < p.Q;
+  const bool live_h[2] = {q0 + g < p.Q, q0 + g + 8 < p.Q};
+  const int c_begin = split * p.cps;
+  const int c_end = min(p.n_chunks, c_begin + p.cps);
+  const float inv_sqrt_ck = 1.f / sqrtf((float)ck);
+  auto slot_of = [&](int j) { return warp * 16 + (j >> 1) * 8 + t4 * 2 + (j & 1); };
+
+  // the block's rows of the query operand a, and the row term
+  // rb = -sum_c qe qk^2 (0 without qe), made from qk / qe in shared memory
+  if constexpr (TC) {
+    const __nv_bfloat16* qk = static_cast<const __nv_bfloat16*>(p.qk);
+    const __nv_bfloat16* qe = static_cast<const __nv_bfloat16*>(p.qe);
+    __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem + L.a);
+    constexpr int LDA = 4 * CK + 8;
+    for (int i = tid; i < kRows * CK; i += kThreads) {
+      const int rr = i / CK, c = i - rr * CK;
+      float e = 0.f, x = 0.f;
+      if (q0 + rr < p.Q) {
+        x = __bfloat162float(qk[(size_t)(q0 + rr) * CK + c]);
+        e = qe != nullptr ? __bfloat162float(qe[(size_t)(q0 + rr) * CK + c]) : 1.f;
       }
+      const float pr = e * x;  // exact: two bf16 significands
+      const __nv_bfloat16 hi = __float2bfloat16_rn(pr);
+      const __nv_bfloat16 lo = __float2bfloat16_rn(pr - __bfloat162float(hi));
+      __nv_bfloat16* ar = sA + rr * LDA;
+      ar[c] = ar[CK + c] = __float2bfloat16_rn(-e);
+      ar[2 * CK + c] = __float2bfloat16_rn(2.f * __bfloat162float(hi));
+      ar[3 * CK + c] = __float2bfloat16_rn(2.f * __bfloat162float(lo));
     }
   }
-  // k rounds of a block-wide argmax over the threads' heads; the winner
-  // pops its head. Round 0 yields the row max, round k-1 the threshold.
-  float row_max = kNegInf;
-  float th = kNegInf;
-  for (int round = 0; round < k; ++round) {
-    float v = top[0];
-    int id = tid;
-    warp_argmax(v, id);
-    if (lane == 0) {
-      s_val[warp] = v;
-      s_id[warp] = id;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < kWarps ? s_val[lane] : -INFINITY;
-      id = lane < kWarps ? s_id[lane] : 0x7fffffff;
-      warp_argmax(v, id);
-      if (lane == 0) {
-        s_pick = v;
-        s_winner = id;
+  if (TC && tid < kRows) {
+    float b = 0.f;
+    if (p.qe != nullptr && q0 + tid < p.Q) {
+      const __nv_bfloat16* qk = static_cast<const __nv_bfloat16*>(p.qk);
+      const __nv_bfloat16* qe = static_cast<const __nv_bfloat16*>(p.qe);
+      for (int c = 0; c < ck; ++c) {
+        const float e = __bfloat162float(qe[(size_t)(q0 + tid) * ck + c]);
+        const float x = __bfloat162float(qk[(size_t)(q0 + tid) * ck + c]);
+        b += e * x * x;
       }
     }
-    __syncthreads();
-    const float pick = s_pick;
-    if (tid == s_winner) {
-#pragma unroll
-      for (int i = 0; i < kMaxK - 1; ++i) top[i] = top[i + 1];
-      top[kMaxK - 1] = kNegInf;
-    }
-    if (round == 0) row_max = pick;
-    th = pick;
+    sRb[tid] = -b;
   }
 
-  // ---- phase B: admit, compact, gather the admitted value rows.
-  const int o_begin = shared_mode ? 0 : r;
-  const int n_feat = (shared_mode ? O : 1) * Cv;
-  for (int f = tid; f < n_feat; f += kThreads) {
-    const int o = o_begin + f / Cv;
-    out[((size_t)o * Q + q) * Cv + f % Cv] = 0.f;
-  }
-  float denom = 0.f;
-  for (int base = 0; base < live_end; base += kThreads) {
-    const int m = base + tid;
-    bool admit = false;
-    float w = 0.f;
-    if (m < live_end && vrow[m]) {
-      const float s = srow[m];
-      if (s >= th) {
-        admit = true;
-        w = expf(s - row_max);
+  // chunk c into stage c % kStages, two chunks ahead of its use, in one
+  // cp.async group: its column scale, its validity bytes and (tensor cores)
+  // its keys. Slots past live_end are zero (invalid); sources that are not
+  // 16-byte aligned are copied by plain loads.
+  const bool vd_async = p.M % 16 == 0 && reinterpret_cast<uintptr_t>(p.valid) % 16 == 0;
+  auto issue_chunk = [&](int c) {
+    const int buf = c % kStages;
+    const int m0 = c * kChunk;
+    if (tid < kChunk / 4) {  // column scale: 16 pieces of 4 floats
+      float* dst = sCs + buf * kChunk + tid * 4;
+      const int m = m0 + tid * 4;
+      if (p.cs != nullptr && m + 4 <= p.M && reinterpret_cast<uintptr_t>(p.cs) % 16 == 0) {
+        cp_async16(dst, p.cs + m, true);
+      } else {
+        for (int e = 0; e < 4; ++e)
+          dst[e] = (p.cs != nullptr && m + e < p.M) ? p.cs[m + e] : 1.f;
+      }
+    } else if (tid < kChunk / 4 + RG * (kChunk / 16)) {  // validity: 4 pieces a row
+      const int t = tid - kChunk / 4, i = t / (kChunk / 16), piece = t % (kChunk / 16);
+      uint8_t* dst = sVd + (buf * RG + i) * kChunk + piece * 16;
+      const int m = m0 + piece * 16;
+      const int n = (r0 + i < p.R) ? max(0, min(16, p.live_end - m)) : 0;
+      const uint8_t* src = p.valid + (size_t)min(r0 + i, p.R - 1) * p.M + (n > 0 ? m : 0);
+      if (vd_async && (n == 16 || n == 0)) {
+        cp_async16(dst, src, n == 16);
+      } else {
+        for (int e = 0; e < 16; ++e) dst[e] = e < n ? src[e] : 0;
       }
     }
-    const unsigned ballot = __ballot_sync(0xffffffffu, admit);
-    if (lane == 0) s_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    int offset = 0;
-    int total = 0;
+    if constexpr (TC) {
+      const __nv_bfloat16* mk = static_cast<const __nv_bfloat16*>(p.mk);
+      __nv_bfloat16* dk = reinterpret_cast<__nv_bfloat16*>(smem + L.stage) + buf * kStageElems<CK>;
+      constexpr int cpr = CK / 8;  // 16-byte pieces per slot
+      for (int i = tid; i < kChunk * cpr; i += kThreads) {
+        const int rr = i / cpr, v = i - rr * cpr;
+        const int m = m0 + rr;
+        const bool ok = m < p.live_end;
+        cp_async16(dk + rr * (CK + 8) + v * 8, ok ? mk + (size_t)m * CK + v * 8 : mk, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // before the first tile() of a pass over chunks [c, last)
+  auto begin = [&](int c, int last) {
+    issue_chunk(c);
+    if (c + 1 < last) issue_chunk(c + 1);
+  };
+
+  // The similarities of chunk c into sim (begin() or the tile() before has
+  // issued chunks c and c + 1; chunk c + 2 is issued here). Called by all
+  // threads; identical inputs give identical values in every pass. One
+  // barrier (two for fp32 keys): chunk c's data is in, every warp is done
+  // with chunk c - 1.
+  auto tile = [&](int c, int last, float (&sim)[2][4]) {
+    const int c0 = c * kChunk;
+    const int buf = c % kStages;
+    const unsigned long long t_in = PROF_NOW();
+    if (c + 1 < last) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c is in; every warp is done with chunk c - 1
+    if (c + 2 < last) issue_chunk(c + 2);
+    if constexpr (TC) {
+      const unsigned long long t_ready = PROF_NOW();
+      PROF_ADD(APPLY ? 4 : 12, t_ready - t_in);
+      PROF_ADD(APPLY ? 6 : 14, 1);
+      const __nv_bfloat16* sA = reinterpret_cast<const __nv_bfloat16*>(smem + L.a);
+      const __nv_bfloat16* dk =
+          reinterpret_cast<const __nv_bfloat16*>(smem + L.stage) + buf * kStageElems<CK>;
+      // warp w: slots [16 w, 16 w + 16) of the chunk, all 16 rows; the
+      // squared keys' hi / lo fragments are made in registers from the key
+      // fragments; two independent mma chains: the squared-key sections and
+      // the key ones. ldmatrix lane addresses: A rows lane % 16, k half
+      // lane / 16; B slot rows (lane % 8) + 8 (lane / 16), k half (lane / 8) % 2
+      const int arow = lane & 15, acol = (lane >> 4) * 8;
+      const int brow = warp * 16 + (lane & 7) + ((lane >> 4) << 3), bcol = ((lane >> 3) & 1) * 8;
+      float acc[2][2][4];
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
-      const int c = s_cnt[i];
-      offset += (i < warp) ? c : 0;
-      total += c;
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          acc[h][nt][0] = acc[h][nt][1] = acc[h][nt][2] = acc[h][nt][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t bk[4], bh[4], bl[4];
+        ldmatrix_x4(bk, dk + brow * (CK + 8) + ks * 16 + bcol);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) square_split2(bk[i], bh[i], bl[i]);
+#pragma unroll
+        for (int sec = 0; sec < 4; ++sec) {
+          uint32_t af[4];
+          ldmatrix_x4(af, sA + arow * (4 * CK + 8) + sec * CK + ks * 16 + acol);
+          const uint32_t* b = sec == 0 ? bh : sec == 1 ? bl : bk;
+          mma_bf16(acc[sec >> 1][0], af, b[0], b[1]);
+          mma_bf16(acc[sec >> 1][1], af, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float rb = sRb[g + 8 * h];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float dot = acc[0][j >> 1][2 * h + (j & 1)] + acc[1][j >> 1][2 * h + (j & 1)];
+          sim[h][j] = (dot + rb) * sCs[buf * kChunk + slot_of(j)] * inv_sqrt_ck;
+        }
+      }
+      PROF_ADD(APPLY ? 5 : 13, PROF_NOW() - t_ready);
+    } else {
+      // the similarity get_similarity computed in torch (fp32 inputs)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int m = c0 + slot_of(j);
+          sim[h][j] = live_h[h] && m < p.M ? p.sim[(size_t)(q0 + g + 8 * h) * p.M + m] : 0.f;
+        }
     }
-    if (admit) {
-      const int pos = offset + __popc(ballot & ((1u << lane) - 1u));
-      s_idx[pos] = m;
-      s_w[pos] = w;
+  };
+  // valid in validity row i at slot j of the lane's row h in chunk c
+  auto valid_at = [&](int c, int i, int h, int j) {
+    return live_h[h] && sVd[((c % kStages) * RG + i) * kChunk + slot_of(j)] != 0;
+  };
+  // any slot of the block's split valid in one of its validity rows
+  auto split_live = [&]() {
+    int any = 0;
+    for (int i = 0; i < RG; ++i) {
+      if (r0 + i >= p.R) break;
+      const uint8_t* v = p.valid + (size_t)(r0 + i) * p.M;
+      for (int m = c_begin * kChunk + tid; m < min(c_end * kChunk, p.live_end); m += kThreads)
+        any |= v[m];
     }
-    __syncthreads();
-    if (total > 0) {  // uniform over the block
-      for (int j = 0; j < total; ++j) denom += s_w[j];
-      for (int f = tid; f < n_feat; f += kThreads) {
-        const int o = o_begin + f / Cv;
-        const int c = f % Cv;
-        const T* col = mv + (size_t)o * M * Cv + c;
-        float acc = 0.f;
-        for (int j = 0; j < total; ++j) acc += s_w[j] * to_float(col[(size_t)s_idx[j] * Cv]);
-        out[((size_t)o * Q + q) * Cv + c] += acc;
+    return __syncthreads_or(any) != 0;
+  };
+
+  PROF_SET(APPLY ? 0 : 8, PROF_NOW());
+  PROF_SET(APPLY ? 4 : 12, 0);
+  PROF_SET(APPLY ? 5 : 13, 0);
+  PROF_SET(APPLY ? 6 : 14, 0);
+  if constexpr (!APPLY) {
+    // ---- select: the split's exact top 32 of each row. Each lane keeps
+    // top-12 lists of its slots for its two rows (an insertion costs 24
+    // instructions, not 64): 16 lists a row (4 lanes x 4 warps), merged at
+    // the end. That is exact unless a lane's list filled up with values that
+    // reach the split's 32nd; then the scan runs again with top-32 lists.
+    auto list_of = [&](int i) {
+      return p.lists + (((size_t)(r0 + i) * p.Q + q0 + row) * p.splits + split) * kMaxK;
+    };
+    // the apply kernel writes usage partials only where it admits: zeros first
+    float* up = p.upart + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * p.M;
+    for (int m = c_begin * kChunk + tid; m < min(c_end * kChunk, p.M); m += kThreads) up[m] = 0.f;
+    if (!split_live()) {  // nothing valid here: empty lists
+      for (int i = 0; i < RG; ++i)
+        if (r0 + i < p.R && row_live)
+          for (int j = sub; j < kMaxK; j += kSub) list_of(i)[j] = kNegInf;
+      return;
+    }
+    float* sW = reinterpret_cast<float*>(smem + L.work);  // [kWarps][kRows][kMaxK]
+    float* sLast = sW + kWarps * kRows * kMaxK;          // [kRows][kWarps * 4]
+    // scan validity rows [i0, i0 + NI) with lists of N; true where a list
+    // may have dropped one of the split's top 32
+    auto scan = [&](auto list_len, auto rows, int i0) {
+      constexpr int N = decltype(list_len)::value;
+      constexpr int NI = decltype(rows)::value;
+      float top[NI][2][N];
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < N; ++j) top[i][h][j] = kNegInf;
+      if (c_begin < c_end) begin(c_begin, c_end);
+      for (int c = c_begin; c < c_end; ++c) {
+        float sim[2][4];
+        tile(c, c_end, sim);
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          float v[2][4];
+          bool any = false;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              v[h][j] = valid_at(c, i0 + i, h, j) ? sim[h][j] : kNegInf;
+              any |= v[h][j] > top[i][h][N - 1];
+            }
+          if (__any_sync(0xffffffffu, any)) {  // later chunks: most warps insert nothing
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) insert(top[i][h], v[h][j]);
+          }
+        }
+      }
+      bool short_list = false;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        // each warp's top 32 of each row (its 4 lanes' lists), then the
+        // row's 8 lanes merge the 4 warps' lists
+        __syncthreads();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sLast[(g + 8 * h) * kWarps * 4 + warp * 4 + t4] = top[i][h][N - 1];
+          for (int j = 0; j < kMaxK; ++j) {
+            const float v = lanes_pop<4>(top[i][h], t4);
+            if (t4 == 0) sW[(warp * kRows + g + 8 * h) * kMaxK + j] = v;
+          }
+        }
+        __syncthreads();
+        float merged[kMaxK];
+#pragma unroll
+        for (int j = 0; j < kMaxK; ++j)
+          merged[j] = sub < kWarps ? sW[(sub * kRows + row) * kMaxK + j] : kNegInf;
+        float v32 = kNegInf;
+        for (int j = 0; j < kMaxK; ++j) {
+          v32 = lanes_pop<kSub>(merged, sub);
+          if (sub == 0 && row_live && r0 + i0 + i < p.R) list_of(i0 + i)[j] = v32;
+        }
+        for (int s = sub; s < kWarps * 4; s += kSub) {
+          const float last = sLast[row * kWarps * 4 + s];
+          short_list |= row_live && last > kNegInf && last >= v32;
+        }
+      }
+      return short_list;
+    };
+    if (__syncthreads_or(scan(std::integral_constant<int, kLane>(),
+                              std::integral_constant<int, RG>(), 0))) {
+      for (int i = 0; i < RG; ++i)
+        scan(std::integral_constant<int, kMaxK>(), std::integral_constant<int, 1>(), i);
+    }
+    PROF_SET(9, PROF_NOW());
+    return;
+  } else {
+    // ---- apply: the threshold of each (row, validity row) from its S lists
+    bool sat = false;
+#pragma unroll
+    for (int i = 0; i < RG; ++i) {
+      // lane `sub` holds split `sub`'s list, already sorted: the k rounds
+      // below merge the S lists
+      float top[kMaxK];
+#pragma unroll
+      for (int j = 0; j < kMaxK; ++j) top[j] = kNegInf;
+      const bool live = row_live && r0 + i < p.R;
+      const float* lst = p.lists + ((size_t)(r0 + i) * p.Q + q0 + row) * p.splits * kMaxK;
+      if (live && sub < p.splits) {
+#pragma unroll
+        for (int j = 0; j < kMaxK; ++j) top[j] = lst[sub * kMaxK + j];
+      }
+      float mx = kNegInf, th = kNegInf, den = 0.f;
+      for (int round = 0; round < p.k; ++round) {
+        const float v = lanes_pop<kSub>(top, sub);
+        if (round == 0) mx = v;
+        th = v;
+        if (v > kNegInf) den += expf(v - mx);
+      }
+      // ties of the threshold beyond the k picks are admitted too
+      int ties = 0;
+#pragma unroll
+      for (int j = 0; j < kMaxK; ++j) ties += (th > kNegInf && top[j] == th);
+      ties = group_sum(ties);
+      for (int j = 0; j < ties; ++j) den += expf(th - mx);
+      // a split list that ends in the threshold may have dropped more ties
+      if (live && th > kNegInf)
+        for (int t = sub; t < p.splits; t += kSub) sat |= lst[t * kMaxK + kMaxK - 1] == th;
+      if (sub == 0) {
+        sTh[i * kRows + row] = th;
+        sMx[i * kRows + row] = mx;
+        sDen[i * kRows + row] = den;
       }
     }
-    // No trailing barrier: the next round writes s_cnt after this round's
-    // second __syncthreads (every read of s_cnt comes before it) and
-    // s_idx/s_w after its own first one (every gather above comes before
-    // that).
-  }
-  const float linv = 1.f / fmaxf(denom, 1e-30f);
-  for (int f = tid; f < n_feat; f += kThreads) {
-    const int o = o_begin + f / Cv;
-    out[((size_t)o * Q + q) * Cv + f % Cv] *= linv;
-  }
-  if (tid == 0) {
-    th_out[(size_t)r * Q + q] = th;
-    max_out[(size_t)r * Q + q] = row_max;
-    linv_out[(size_t)r * Q + q] = linv;
+    if (__syncthreads_or(sat)) {
+      // the exact denominators by one scan over the whole memory: lanes'
+      // sums, then the row's 4 lanes, then the 4 warps in order
+      float th[RG][2], mx[RG][2], d[RG][2];
+#pragma unroll
+      for (int i = 0; i < RG; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          th[i][h] = sTh[i * kRows + g + 8 * h];
+          mx[i][h] = sMx[i * kRows + g + 8 * h];
+          d[i][h] = 0.f;
+        }
+      if (p.n_chunks > 0) begin(0, p.n_chunks);
+      for (int c = 0; c < p.n_chunks; ++c) {
+        float sim[2][4];
+        tile(c, p.n_chunks, sim);
+#pragma unroll
+        for (int i = 0; i < RG; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (valid_at(c, i, h, j) && sim[h][j] >= th[i][h]) d[i][h] += expf(sim[h][j] - mx[i][h]);
+      }
+      float* sDw = reinterpret_cast<float*>(smem + L.work);  // [RG][kRows][kWarps]
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < RG; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v = d[i][h];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (t4 == 0) sDw[(i * kRows + g + 8 * h) * kWarps + warp] = v;
+        }
+      __syncthreads();
+      if (tid < RG * kRows) {
+        float v = 0.f;
+        for (int w = 0; w < kWarps; ++w) v += sDw[tid * kWarps + w];
+        sDen[tid] = v;
+      }
+    }
+    __syncthreads();
+    float th[RG][2], mx[RG][2], den[RG][2];
+#pragma unroll
+    for (int i = 0; i < RG; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        th[i][h] = sTh[i * kRows + g + 8 * h];
+        mx[i][h] = sMx[i * kRows + g + 8 * h];
+        den[i][h] = fmaxf(sDen[i * kRows + g + 8 * h], 1e-30f);
+      }
+    PROF_SET(1, PROF_NOW());
+
+    // ---- admit, usage partials, admitted entries per (validity row, row, warp)
+    const TV* mv = static_cast<const TV*>(p.mv);
+    int* sEm = reinterpret_cast<int*>(smem + L.work);                 // [RG][kWarps][kRows][kCap]
+    float* sEw = reinterpret_cast<float*>(sEm + RG * kWarps * kRows * kCap);
+    float* up = p.upart + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) * p.M;
+    auto at_of = [&](int i, int h) {  // (validity row, split, query, warp)
+      return (((size_t)(r0 + i) * p.splits + split) * p.Q + q0 + g + 8 * h) * kWarps + warp;
+    };
+    auto list_at = [&](int i, int h) { return ((i * kWarps + warp) * kRows + g + 8 * h) * kCap; };
+    int cnt[RG][2];        // entries of (i, row h) (uniform over the row's 4 lanes)
+    bool flushed[RG][2];   // its readout partial already holds a flush
+#pragma unroll
+    for (int i = 0; i < RG; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cnt[i][h] = 0;
+        flushed[i][h] = false;
+      }
+    // the entries of (i, h) into its readout partial, by the row's 4 lanes
+    auto flush = [&](int i, int h) {
+      const int* em = sEm + list_at(i, h);
+      const float* ew = sEw + list_at(i, h);
+      float* rp = p.rpart + at_of(i, h) * p.n_feat;
+      const int o0 = p.shared_mode ? 0 : r0 + i;
+      for (int f = t4; f < p.n_feat; f += 4) {
+        const size_t base = (size_t)(o0 + f / p.Cv) * p.M * p.Cv + f % p.Cv;
+        float acc = flushed[i][h] ? rp[f] : 0.f;
+        for (int e = 0; e < cnt[i][h]; ++e)
+          acc += ew[e] * to_float(mv[base + (size_t)em[e] * p.Cv]);
+        rp[f] = acc;
+      }
+      flushed[i][h] = true;
+      cnt[i][h] = 0;
+    };
+    if (split_live()) {  // else nothing valid here: no usage, no readout
+      if (c_begin < c_end) begin(c_begin, c_end);
+      for (int c = c_begin; c < c_end; ++c) {
+        float sim[2][4];
+        tile(c, c_end, sim);
+        const int c0 = c * kChunk;
+        unsigned admit = 0;  // bit (i * 2 + h) * 4 + j
+#pragma unroll
+        for (int i = 0; i < RG; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (valid_at(c, i, h, j) && sim[h][j] >= th[i][h]) admit |= 1u << ((i * 2 + h) * 4 + j);
+        // most warps admit nothing in most chunks: the usage partial
+        // (zero-filled by the select kernel) stays as it is
+        if (!__any_sync(0xffffffffu, admit != 0)) continue;
+        float a[RG][2][4];
+        float u[4] = {0.f, 0.f, 0.f, 0.f};  // the slot's affinity over rows and validity rows
+#pragma unroll
+        for (int i = 0; i < RG; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              a[i][h][j] = 0.f;
+              if ((admit >> ((i * 2 + h) * 4 + j)) & 1u)
+                a[i][h][j] = expf(sim[h][j] - mx[i][h]) / den[i][h];
+              u[j] += a[i][h][j];
+            }
+        // column sums over the warp's 8 row pairs (lanes of one t4), fixed order
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          u[j] += __shfl_xor_sync(0xffffffffu, u[j], 4);
+          u[j] += __shfl_xor_sync(0xffffffffu, u[j], 8);
+          u[j] += __shfl_xor_sync(0xffffffffu, u[j], 16);
+          if (g == 0 && c0 + slot_of(j) < p.M) up[c0 + slot_of(j)] = u[j];
+        }
+        // the admitted (slot, affinity) entries of each (i, row, warp)
+#pragma unroll
+        for (int i = 0; i < RG; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const bool ok = (admit >> ((i * 2 + h) * 4 + j)) & 1u;
+              const unsigned mine = (__ballot_sync(0xffffffffu, ok) >> (4 * g)) & 0xfu;
+              if (cnt[i][h] + __popc(mine) > kCap) flush(i, h);
+              if (ok) {
+                const int pos = list_at(i, h) + cnt[i][h] + __popc(mine & ((1u << t4) - 1u));
+                sEm[pos] = c0 + slot_of(j);
+                sEw[pos] = a[i][h][j];
+              }
+              cnt[i][h] += __popc(mine);
+              __syncwarp();
+            }
+      }
+    }
+    PROF_SET(2, PROF_NOW());
+    // the kept entries and the flags of each (validity row, row, warp), by
+    // the row's 4 lanes
+#pragma unroll
+    for (int i = 0; i < RG; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (r0 + i >= p.R || !live_h[h]) continue;
+        const size_t at = at_of(i, h);
+        for (int e = t4; e < cnt[i][h]; e += 4) {
+          p.eslot[at * kCap + e] = sEm[list_at(i, h) + e];
+          p.eaff[at * kCap + e] = sEw[list_at(i, h) + e];
+        }
+        if (t4 == 0) {
+          p.ecount[at] = cnt[i][h];
+          p.rflag[at] = flushed[i][h];
+        }
+      }
+    PROF_SET(3, PROF_NOW());
   }
 }
 
-// usage[m] = scale * sum_r sum_q [valid(r, m) && sim(q, m) >= th(r, q)]
-//            * exp(sim(q, m) - max(r, q)) * linv(r, q)
-// Block (kColTile, kRowGroups): each thread sums a strided set of rows of
-// one column, then the row groups are added in a fixed order.
-__global__ void __launch_bounds__(kColTile * kRowGroups) memory_read_usage(
-    const float* __restrict__ sim, const uint8_t* __restrict__ valid,
-    const float* __restrict__ th, const float* __restrict__ mx,
-    const float* __restrict__ linv, float* __restrict__ usage,
-    int Q, int M, int live_end, int R, float scale) {
-  __shared__ float part[kRowGroups][kColTile + 1];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int m = blockIdx.x * kColTile + tx;
-  float u = 0.f;
-  if (m < live_end) {
-    for (int r = 0; r < R; ++r) {
-      if (!valid[(size_t)r * M + m]) continue;
-      const float* th_r = th + (size_t)r * Q;
-      const float* mx_r = mx + (size_t)r * Q;
-      const float* li_r = linv + (size_t)r * Q;
-      for (int q = ty; q < Q; q += kRowGroups) {
-        const float s = sim[(size_t)q * M + m];
-        if (s >= th_r[q]) u += expf(s - mx_r[q]) * li_r[q];
-      }
+// out[o, q, c] = sum over the splits and the warps, in order, of the
+// (validity row, q) readout partial where a list overflowed, then of its
+// kept entries: affinity * mv[o, slot, c]. One thread per (validity row, q,
+// feature).
+template <typename TV>
+__global__ void memory_read_finish(Params p, int R) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t per_r = (size_t)p.Q * p.n_feat;
+  if (i >= per_r * R) return;
+  const int r = (int)(i / per_r);
+  const int q = (int)((i % per_r) / p.n_feat), f = (int)(i % p.n_feat);
+  const int o = (p.shared_mode ? 0 : r) + f / p.Cv, c = f % p.Cv;
+  const TV* mv = static_cast<const TV*>(p.mv) + (size_t)o * p.M * p.Cv + c;
+  float acc = 0.f;
+  for (int s = 0; s < p.splits; ++s) {
+    for (int w = 0; w < kWarps; ++w) {
+      const size_t rs = (((size_t)r * p.splits + s) * p.Q + q) * kWarps + w;
+      if (p.rflag[rs]) acc += p.rpart[rs * p.n_feat + f];
+      const int n = p.ecount[rs];
+      const int* slot = p.eslot + rs * kCap;
+      const float* aff = p.eaff + rs * kCap;
+#pragma unroll 4
+      for (int e = 0; e < n; ++e) acc += aff[e] * to_float(mv[(size_t)slot[e] * p.Cv]);
     }
   }
-  part[ty][tx] = u;
-  __syncthreads();
-  if (ty == 0 && m < M) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRowGroups; ++i) t += part[i][tx];
-    usage[m] = t * scale;
+  p.out[((size_t)o * p.Q + q) * p.Cv + c] = acc;
+}
+
+// usage[m] = scale * sum over (validity row, query tile) of the partials,
+// in a fixed order; slots at or past the scanned range are 0.
+__global__ void memory_read_usage(const float* __restrict__ partial, float* __restrict__ usage,
+                                  int n_parts, int M, int scan_end, float scale) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float u = 0.f;
+  if (m < scan_end)
+    for (int i = 0; i < n_parts; ++i) u += partial[(size_t)i * M + m];
+  usage[m] = u * scale;
+}
+
+template <bool TC, int CK, typename TV, int RG>
+int launch_rg(const Params& p, int q_tiles, cudaStream_t s) {
+  const dim3 grid(q_tiles, p.splits, (p.R + RG - 1) / RG);
+  const size_t smem = layout(TC, TC ? CK : p.ck, RG).total;
+  cudaError_t err = cudaFuncSetAttribute(memory_read_pass<TC, CK, TV, false, RG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(memory_read_pass<TC, CK, TV, true, RG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  memory_read_pass<TC, CK, TV, false, RG><<<grid, kThreads, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  memory_read_pass<TC, CK, TV, true, RG><<<grid, kThreads, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// validity rows per block: 2 in per-object mode, so that two objects share
+// each similarity tile
+inline int rows_per_block(const Params& p) { return (!p.shared_mode && p.R >= 2) ? 2 : 1; }
+
+template <bool TC, int CK, typename TV>
+int launch(const Params& p, int q_tiles, cudaStream_t s) {
+  return rows_per_block(p) == 2 ? launch_rg<TC, CK, TV, 2>(p, q_tiles, s)
+                                : launch_rg<TC, CK, TV, 1>(p, q_tiles, s);
+}
+
+template <bool TC, typename TV>
+int launch_ck(const Params& p, int q_tiles, cudaStream_t s) {
+  if constexpr (!TC) {
+    return launch<false, 0, TV>(p, q_tiles, s);
+  } else {
+    switch (p.ck) {
+      case 16: return launch<true, 16, TV>(p, q_tiles, s);
+      case 32: return launch<true, 32, TV>(p, q_tiles, s);
+      case 48: return launch<true, 48, TV>(p, q_tiles, s);
+      case 64: return launch<true, 64, TV>(p, q_tiles, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+}
+
+template <typename K>
+int occupancy(K kernel, int threads, size_t smem, int* info) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = fa.numRegs;
+  info[1] = (int)fa.sharedSizeBytes;
+  info[2] = (int)smem;
+  info[3] = blocks;
+  info[4] = threads;
+  info[5] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+template <bool TC, int CK, typename TV>
+int occupancy_pass(int kernel, int ck, int* info) {
+  const bool apply = kernel % 2 == 1;
+  const int rg = kernel >= 4 ? 2 : 1;
+  const size_t smem = layout(TC, ck, rg).total;
+  if (rg == 2)
+    return apply ? occupancy(memory_read_pass<TC, CK, TV, true, 2>, kThreads, smem, info)
+                 : occupancy(memory_read_pass<TC, CK, TV, false, 2>, kThreads, smem, info);
+  return apply ? occupancy(memory_read_pass<TC, CK, TV, true, 1>, kThreads, smem, info)
+               : occupancy(memory_read_pass<TC, CK, TV, false, 1>, kThreads, smem, info);
 }
 
 }  // namespace
 
+// keys_tc: qk, qe (nullable) (Q, Ck) and mk (M, Ck) bf16 with Ck in {16, 32,
+// 48, 64}, sim null; else sim (Q, M) fp32, the similarity get_similarity
+// computed, and qk / qe / mk unused; cs (M,) fp32 or null;
+// valid (R, M) uint8; mv (O, M, Cv) bf16 (mv_is_bf16) or fp32; out (O, Q, Cv)
+// fp32. Scratch, splits S <= 8: lists R * Q * S * 32 floats; ecount and
+// rflag R * S * Q ints, eslot and eaff R * S * Q * 32 ints / floats; rpart R
+// * S * Q * n_feat floats (n_feat = O * Cv shared, Cv per object); upart
+// ceil(R / rows per block) * ceil(Q / 16) * M floats; usage
+// (M,) or null.
 extern "C" int vosesam_memory_read(
-    const float* sim, const uint8_t* valid, const void* mv, int mv_is_bf16,
-    float* out, float* th, float* mx, float* linv, float* usage,
-    int Q, int M, int live_end, int O, int Cv, int k, int R, int shared_mode,
-    float usage_scale, void* stream_ptr) {
-  if (k < 1 || k > kMaxK || live_end < 0 || live_end > M) return (int)cudaErrorInvalidValue;
+    const void* qk, const void* qe, const void* mk, const float* sim, const float* cs,
+    int keys_tc,
+    const uint8_t* valid, const void* mv, int mv_is_bf16, float* out, float* lists,
+    int* ecount, int* eslot, float* eaff, float* rpart, int* rflag, float* upart, float* usage, int Q, int M, int ck, int live_end,
+    int O, int Cv, int k, int R, int shared_mode, int splits, float usage_scale,
+    void* stream_ptr) {
+  if (k < 1 || k > kMaxK || live_end < 0 || live_end > M || ck < 1 || Cv < 1 || R < 1 ||
+      splits < 1 || splits > kMaxSplits)
+    return (int)cudaErrorInvalidValue;
+  if (keys_tc ? (ck % 16 != 0 || ck > 64 || sim != nullptr) : sim == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (Q > 0) {
-    const dim3 grid(Q, R);
-    if (mv_is_bf16) {
-      memory_read_rows<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-          sim, valid, static_cast<const __nv_bfloat16*>(mv), out, th, mx, linv,
-          Q, M, live_end, O, Cv, k, shared_mode);
-    } else {
-      memory_read_rows<float><<<grid, kThreads, 0, stream>>>(
-          sim, valid, static_cast<const float*>(mv), out, th, mx, linv,
-          Q, M, live_end, O, Cv, k, shared_mode);
-    }
+  Params p;
+  p.qk = qk; p.qe = qe; p.mk = mk; p.sim = sim; p.cs = cs;
+  p.valid = valid; p.mv = mv; p.out = out;
+  p.lists = lists; p.ecount = ecount; p.eslot = eslot; p.eaff = eaff;
+  p.rpart = rpart; p.rflag = rflag; p.upart = upart;
+  p.Q = Q; p.M = M; p.ck = ck; p.live_end = live_end; p.O = O; p.Cv = Cv; p.k = k;
+  p.shared_mode = shared_mode;
+  p.R = R;
+  p.n_feat = (shared_mode ? O : 1) * Cv;
+  p.splits = splits;
+  p.n_chunks = (live_end + kChunk - 1) / kChunk;
+  p.cps = (p.n_chunks + splits - 1) / splits;
+  const int q_tiles = (Q + kRows - 1) / kRows;
+  const int groups = (R + rows_per_block(p) - 1) / rows_per_block(p);
+  if (Q > 0 && p.n_feat > 0) {
+    int rc;
+    if (keys_tc)
+      rc = mv_is_bf16 ? launch_ck<true, __nv_bfloat16>(p, q_tiles, stream)
+                      : launch_ck<true, float>(p, q_tiles, stream);
+    else
+      rc = mv_is_bf16 ? launch_ck<false, __nv_bfloat16>(p, q_tiles, stream)
+                      : launch_ck<false, float>(p, q_tiles, stream);
+    if (rc != 0) return rc;
+    const size_t n = (size_t)R * Q * p.n_feat;
+    if (mv_is_bf16)
+      memory_read_finish<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(p, R);
+    else
+      memory_read_finish<float><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(p, R);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (usage != nullptr && M > 0) {
-    const dim3 grid((M + kColTile - 1) / kColTile);
-    const dim3 block(kColTile, kRowGroups);
-    memory_read_usage<<<grid, block, 0, stream>>>(
-        sim, valid, th, mx, linv, usage, Q, M, live_end, R, usage_scale);
+    const int scan_end = Q > 0 && p.n_feat > 0 ? p.n_chunks * kChunk : 0;
+    memory_read_usage<<<(M + 255) / 256, 256, 0, stream>>>(upart, usage, groups * q_tiles, M,
+                                                           scan_end, usage_scale);
   }
   return (int)cudaGetLastError();
 }
+
+// The occupancy of one kernel as the card reports it: kernel 0 select, 1
+// apply (one validity row per block), 2 finish, 3 usage, 4 select, 5 apply
+// (two validity rows per block), of the instance keys_tc / ck / mv_is_bf16
+// select; info gets registers, static and dynamic shared bytes, resident
+// blocks per SM, threads per block, local (spill) bytes per thread.
+extern "C" int vosesam_memory_read_occupancy(int keys_tc, int ck, int mv_is_bf16, int kernel,
+                                             int* info) {
+  if (kernel == 2)
+    return mv_is_bf16 ? occupancy(memory_read_finish<__nv_bfloat16>, 256, 0, info)
+                      : occupancy(memory_read_finish<float>, 256, 0, info);
+  if (kernel == 3) return occupancy(memory_read_usage, 256, 0, info);
+  if (!keys_tc)
+    return mv_is_bf16 ? occupancy_pass<false, 0, __nv_bfloat16>(kernel, ck, info)
+                      : occupancy_pass<false, 0, float>(kernel, ck, info);
+  switch (ck) {
+    case 16: return mv_is_bf16 ? occupancy_pass<true, 16, __nv_bfloat16>(kernel, ck, info)
+                               : occupancy_pass<true, 16, float>(kernel, ck, info);
+    case 32: return mv_is_bf16 ? occupancy_pass<true, 32, __nv_bfloat16>(kernel, ck, info)
+                               : occupancy_pass<true, 32, float>(kernel, ck, info);
+    case 48: return mv_is_bf16 ? occupancy_pass<true, 48, __nv_bfloat16>(kernel, ck, info)
+                               : occupancy_pass<true, 48, float>(kernel, ck, info);
+    case 64: return mv_is_bf16 ? occupancy_pass<true, 64, __nv_bfloat16>(kernel, ck, info)
+                               : occupancy_pass<true, 64, float>(kernel, ck, info);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#ifdef VOSESAM_PROFILE
+extern "C" int vosesam_memory_read_profile(void* dst, int n_blocks) {
+  return (int)cudaMemcpyFromSymbol(dst, g_prof, (size_t)n_blocks * 16 * 8);
+}
+#endif

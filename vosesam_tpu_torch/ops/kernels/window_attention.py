@@ -10,8 +10,10 @@ row-major grid. Replaces the two Pallas TPU kernels
 under `windowed_attention_impl="pallas"` / `"pallas_mh"`. The two compute
 one function and differ only in their TPU grid, so for CUDA tensors both
 wrappers launch the one hand-written kernel `csrc/window_attention.cu` (its
-header says what bounds it on the H100 and what the design does about it);
-each counts its launches under its own name.
+header says what bounds it on the H100 and what the design does about it:
+4-warp blocks over (window, head, 64 query rows), 64-key chunks streamed
+through a cp.async ring with an online softmax); each counts its launches
+under its own name. `occupancy` reports what the card makes of an instance.
 
 q, k and v may be strided views (any window, head and token strides, dense
 last axis): the encoder passes the slices of its fused qkv projection as
@@ -68,6 +70,27 @@ def _lib() -> ctypes.CDLL:
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+OCCUPANCY_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                  "blocks_per_sm", "threads_per_block", "local_bytes")
+
+
+def occupancy(dtype: torch.dtype, window_hw: Tuple[int, int], d: int) -> Dict[str, int]:
+    """Registers, shared memory and resident blocks per SM of the kernel
+    instance that a launch at these shapes selects, as the card reports them
+    (`cudaFuncGetAttributes`, `cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    wh, ww = window_hw
+    fn = _lib().vosesam_window_attention_occupancy
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
+    info = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    rc = fn(int(dtype == torch.bfloat16), wh * ww, d, wh, ww, info)
+    if rc != 0:
+        raise RuntimeError(f"window_attention occupancy query failed: CUDA error {rc}")
+    return dict(zip(OCCUPANCY_KEYS, info))
 
 
 def _check(q, k, v, bias_h, bias_w, window_hw, fn: str = "window_attention_relpos") -> None:
