@@ -19,10 +19,16 @@ Phases (each one that fails exits non-zero):
      each kernel instance's registers, shared memory and blocks per SM;
   2b. kernel vs plain for B3 (global attention with factorised rel-pos
      bias): vit_h's 16 heads, D 80, on the square (64x64), rect (36x64) and
-     fixed (28x56) grids, B 1 and 8, bf16 and fp32, plus edge cases (N not a
-     multiple of 64, D 64, gh != gw, 3 heads); timings of the kernel, the
-     plain version and `scaled_dot_product_attention` with the materialised
-     bias (a yardstick the port never calls), beside the bound;
+     fixed (28x56) grids, B 1 and 8, bf16 and fp32, on the strided q / k / v
+     views the encoder passes (equal to contiguous copies; bf16 views staged
+     by TMA), plus edge cases (N not a multiple of 64, odd grid widths, D 64
+     / 37 / 128 / 16, gh != gw, 3 heads, strided and contiguous, bf16 views
+     TMA cannot describe, bad inputs raise); timings of the kernel (device
+     time by torch.profiler, and CUDA events around one call and around 10
+     back-to-back calls), the plain version and
+     `scaled_dot_product_attention` with the materialised bias (a yardstick
+     the port never calls), beside the bound; each instance's registers,
+     shared memory and blocks per SM, and the grid's waves;
   2c. kernel vs plain for B4 / B5 (whole-window attention with factorised
      rel-pos bias, one kernel under both names): vit_h's 16 heads, 14x14
      windows, D 80, at the rect grid's 15 windows per frame and the square
@@ -46,6 +52,8 @@ Phases (each one that fails exits non-zero):
      small odd ones, then the probe's own run, counted from 0: the card's
      multiply-add rate in the scan and the scan's projected time per
      alignment call beside B6's;
+  2f. each kernel entry point (B1, B2, B3, B4, B5, B6, B7) raises under
+     grad mode for an input that requires grad, and runs under no_grad;
   3. XMem end to end: `TrackingAnything` (XMem-s012 widths, default
      MemoryConfig, bf16, no refinement) tracks a 64-frame 480x854 clip with
      two objects seeded on frame 0 and a third added on frame 40;
@@ -165,8 +173,12 @@ def add_mask(h: int, w: int, i: int) -> np.ndarray:
 
 # ------------------------------------------------------------------ helpers
 
-def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, after warm-up."""
+def time_ms(torch, fn, reps: int = 25, warmup: int = 3, batch: int = 1) -> float:
+    """Median CUDA-event time of one call, after warm-up. With `batch` > 1
+    each event pair spans that many back-to-back calls and the time is per
+    call: the host issues a call while the device runs the one before, so
+    that reads the longer of the two, where a pair around one call reads
+    their sum."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -175,31 +187,23 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
 def device_ms(torch, fn, calls: int = 20, warmup: int = 3) -> float:
-    """Device time of one call: torch.profiler's sum over the CUDA kernels
-    of `calls` back-to-back calls, divided by the calls. For a call shorter
-    than the host takes to launch it (the window kernel: tens of
-    microseconds), where a CUDA-event pair around one call times the host."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call by torch.profiler over `calls` back-to-back
+    calls (`ops/kernels/ab.py`'s reading, which survives the profiler's
+    lost kernel records). For a call shorter than the host takes to launch
+    it (the window kernel: tens of microseconds), where a CUDA-event pair
+    around one call times the host."""
+    from vosesam_tpu_torch.ops.kernels.ab import device_ms as profiled_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    total_us = sum(e.self_device_time_total for e in events)
-    check(total_us > 0, "torch.profiler reported no device time")
-    return total_us / 1e3 / calls
+    return profiled_ms(fn, calls, warmup)
 
 
 def softmax0(x: np.ndarray) -> np.ndarray:
@@ -574,14 +578,20 @@ def _exp_rate(torch):
     return sms * SFU_RESULTS_PER_SM_CLOCK * mhz * 1e6, sms, mhz
 
 
-def _attn_case(torch, gen, bh, gh, gw, d, dtype):
+def _attn_case(torch, gen, b, heads, gh, gw, d, dtype, strided: bool = True):
+    """q, k, v (B, heads, N, D) and the fp32 bias factors (B, heads, N, gh)
+    and (B, heads, N, gw). `strided`: q, k, v are the views the encoder
+    passes, slices of one (B, N, 3, heads, D) projection; else contiguous."""
     n = gh * gw
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    return (rnd(bh, n, d).to(dtype), rnd(bh, n, d).to(dtype), rnd(bh, n, d).to(dtype),
-            rnd(bh, n, gh), rnd(bh, n, gw))
+    if strided:
+        q, k, v = (x.transpose(1, 2) for x in rnd(b, n, 3, heads, d).to(dtype).unbind(2))
+    else:
+        q, k, v = (rnd(b, heads, n, d).to(dtype) for _ in range(3))
+    return q, k, v, rnd(b, heads, n, gh), rnd(b, heads, n, gw)
 
 
 def _attn_bound(bh, gh, gw, d, itemsize, flop_rate):
@@ -611,31 +621,52 @@ def phase_flash_kernel(torch):
             for dtype, tol in ((torch.bfloat16, BF16_ATTN_TOL), (torch.float32, FP32_ATTN_TOL)):
                 if label == "square" and b == 8 and dtype == torch.float32:
                     continue       # the plain fp32 scores would need 34 GB
-                args = _attn_case(torch, gen, b * heads, gh, gw, d, dtype)
+                args = _attn_case(torch, gen, b, heads, gh, gw, d, dtype)
                 out = fa.flash_attention_relpos(*args, (gh, gw))
                 torch.cuda.synchronize()
                 ref = fa.flash_attention_relpos_plain(*args, (gh, gw))
                 err = (out.float() - ref.float()).abs().max().item()
                 check(bool(torch.isfinite(out).all()), f"B3 {label} B{b}: non-finite output")
                 check(err <= tol, f"B3 {label} B{b} {dtype}: max abs err {err} > {tol}")
+                check(out.transpose(1, 2).reshape(b, gh * gw, heads * d).is_contiguous(),
+                      f"B3 {label} B{b}: the output is not (B, N, heads * D) memory")
+                # the encoder's strided views against contiguous copies: equal
+                dense = fa.flash_attention_relpos(*(x.contiguous() for x in args), (gh, gw))
+                check(torch.equal(dense, out),
+                      f"B3 {label} B{b} {dtype}: strided and contiguous inputs differ")
+                del dense
                 row = dict(grid=label, gh=gh, gw=gw, batch=b, heads=heads, d=d,
-                           dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol)
+                           dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
+                           strided_equals_contiguous=True)
                 if dtype == torch.bfloat16:
+                    # the encoder's views reach shared memory by TMA
+                    check(fa.uses_tma(*args[:3]), f"B3 {label} B{b}: the views do not take TMA")
                     q, k, v, bh_, bw_ = args
                     n = gh * gw
-                    mask = (bh_[..., :, None] + bw_[..., None, :]).reshape(-1, n, n).to(dtype)
-                    row["ms"] = time_ms(torch, lambda: fa.flash_attention_relpos(*args, (gh, gw)))
+                    mask = (bh_[..., :, None] + bw_[..., None, :]).reshape(b, heads, n, n).to(dtype)
+                    # device time by the profiler (a call is about as short as
+                    # the host's issue of it); beside it the CUDA-event time of
+                    # one call (device and host issue) and per call of 10
+                    # back-to-back calls (the longer of the two)
+                    kern = lambda: fa.flash_attention_relpos(*args, (gh, gw))  # noqa: E731
+                    row["ms"] = device_ms(torch, kern)
+                    row["event_ms"] = time_ms(torch, kern)
+                    row["batched_ms"] = time_ms(torch, kern, batch=10)
                     row["plain_ms"] = time_ms(
                         torch, lambda: fa.flash_attention_relpos_plain(*args, (gh, gw)), reps=5)
-                    row["library_ms"] = time_ms(
-                        torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-                    del mask
+                    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa
+                    row["library_ms"] = device_ms(torch, sdpa)
+                    row["library_event_ms"] = time_ms(torch, sdpa)
+                    del mask, kern, sdpa
                     row["bound_ms"], row["bound_by"] = _attn_bound(
                         b * heads, gh, gw, d, 2, BF16_FLOP_PER_S)
                     row["exp_floor_estimate_ms"] = (
                         b * heads * (gh * gw) ** 2 / exp_rate * 1e3 if exp_rate else None)
-                    log(f"[B3] {label} B{b} bf16: err {err:.3g} | kernel {row['ms']:.3f} ms, "
-                        f"plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.3f}, bound "
+                    log(f"[B3] {label} B{b} bf16: err {err:.3g} | kernel {row['ms']:.4f} ms "
+                        f"device (CUDA events: one call {row['event_ms']:.4f}, 10 back to back "
+                        f"{row['batched_ms']:.4f}), plain {row['plain_ms']:.3f}, sdpa "
+                        f"{row['library_ms']:.4f} device ({row['library_event_ms']:.4f} one "
+                        f"call), bound "
                         f"{row['bound_ms']:.3f} ({row['bound_by']}), exp-floor estimate "
                         f"{row['exp_floor_estimate_ms']}")
                 else:
@@ -647,24 +678,64 @@ def phase_flash_kernel(torch):
                         f"bound {row['bound_ms']:.3f}")
                 cases.append(row)
                 del args, out, ref
-    for bh, gh, gw, dd in ((3, 10, 13, 64), (3, 7, 9, 80), (2, 5, 5, 37), (4, 16, 16, 128),
-                           (16, 20, 36, 64)):
+    # N 130 / 63 / 25 / 720 / 7 are not multiples of the 64-key tile (130,
+    # 63, 25 and 7 have odd grid widths: key pairs straddle grid rows), 256
+    # has no ragged tile
+    for b, hd_, gh, gw, dd in ((1, 3, 10, 13, 64), (2, 3, 7, 9, 80), (1, 2, 5, 5, 37),
+                               (1, 4, 16, 16, 128), (2, 8, 20, 36, 64), (1, 2, 1, 7, 16)):
         for dtype, tol in ((torch.bfloat16, BF16_ATTN_TOL), (torch.float32, FP32_ATTN_TOL)):
-            args = _attn_case(torch, gen, bh, gh, gw, dd, dtype)
-            out = fa.flash_attention_relpos(*args, (gh, gw))
-            torch.cuda.synchronize()
-            err = (out.float() - fa.flash_attention_relpos_plain(*args, (gh, gw)).float()
-                   ).abs().max().item()
-            check(err <= tol, f"B3 edge {bh}x{gh}x{gw} d{dd} {dtype}: err {err}")
-    q, *rest = _attn_case(torch, gen, 2, 4, 4, 16, torch.bfloat16)
-    try:
-        fa.flash_attention_relpos(q[..., :10].contiguous(), *rest, (4, 4))
-    except ValueError:
-        pass
-    else:
-        raise SmokeFailure("B3: mismatched q/k shapes did not raise")
-    log("[B3] edge cases: N 130 / 63 / 25 / 720 (not multiples of 64), D 64 / 37 / 128, "
-        "gh != gw, 3 heads, fp32 + bf16, bad shapes raise: ok")
+            for strided in (True, False):
+                args = _attn_case(torch, gen, b, hd_, gh, gw, dd, dtype, strided)
+                out = fa.flash_attention_relpos(*args, (gh, gw))
+                torch.cuda.synchronize()
+                err = (out.float() - fa.flash_attention_relpos_plain(*args, (gh, gw)).float()
+                       ).abs().max().item()
+                check(err <= tol, f"B3 edge B{b} h{hd_} {gh}x{gw} d{dd} {dtype} "
+                                  f"strided={strided}: err {err}")
+    # bf16 views TMA cannot describe take the kernel's plain loads: a head
+    # axis of stride 0, and a base that is not 16-byte aligned (D 80)
+    q, k, v, bh_, bw_ = _attn_case(torch, gen, 2, 1, 6, 11, 80, torch.bfloat16, False)
+    wide = torch.randn(2, 3, 66, 88, generator=gen, device="cuda").to(torch.bfloat16)
+    for what, qkv in (("stride-0 heads", [x.expand(2, 3, 66, 80) for x in (q, k, v)]),
+                      ("unaligned", [wide[..., 1:81], wide[..., 3:83], wide[..., 5:85]])):
+        args = (*qkv, *(x.expand(2, 3, 66, -1).contiguous() for x in (bh_, bw_)))
+        check(not fa.uses_tma(*qkv), f"B3 {what}: TMA was planned for views it cannot take")
+        err = (fa.flash_attention_relpos(*args, (6, 11)).float()
+               - fa.flash_attention_relpos_plain(*args, (6, 11)).float()).abs().max().item()
+        check(err <= BF16_ATTN_TOL, f"B3 {what} views: err {err}")
+    q, k, v, bh_, bw_ = _attn_case(torch, gen, 1, 2, 4, 4, 16, torch.bfloat16, False)
+    bad = {"k shape": (q, k[..., :10].contiguous(), v, bh_, bw_, (4, 4)),
+           "grid": (q, k, v, bh_, bw_, (4, 5)),
+           "bias dtype": (q, k, v, bh_.to(torch.bfloat16), bw_, (4, 4)),
+           "q last axis": (torch.zeros_like(q).repeat(1, 1, 1, 2)[..., ::2], k, v, bh_, bw_,
+                           (4, 4)),
+           "q rank": (q[0], k[0], v[0], bh_[0], bw_[0], (4, 4))}
+    for what, a in bad.items():
+        try:
+            fa.flash_attention_relpos(*a)
+        except (ValueError, TypeError):
+            pass
+        else:
+            raise SmokeFailure(f"B3: bad {what} did not raise")
+    log("[B3] edge cases: N 130 / 63 / 25 / 256 / 720 / 7 (odd grid widths too), D 64 / 37 / "
+        "128 / 16, gh != gw, 3 heads, strided and contiguous, stride-0 and unaligned bf16 views "
+        "(plain loads), fp32 + bf16, bad inputs raise: ok")
+    OCCUPANCY["flash_attention"] = {
+        f"{dt} {label} D {dd}": fa.occupancy(getattr(torch, dt), g, dd)
+        for label, g in (("rect", (36, 64)), ("square", (64, 64)))
+        for dt in ("bfloat16", "float32") for dd in (64, 80, 128)}
+    for inst, occ in OCCUPANCY["flash_attention"].items():
+        log(f"[B3] occupancy {inst}: {json.dumps(occ)}")
+    # the grid: blocks of 128 query rows, and waves over the card's SMs at
+    # the occupancy the card reports for the instance
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c in cases:
+        if c["dtype"] == "bfloat16":
+            per_sm = fa.occupancy(torch.bfloat16, (c["gh"], c["gw"]), d)["blocks_per_sm"]
+            c["blocks"] = c["batch"] * heads * -(-(c["gh"] * c["gw"]) // 128)
+            c["waves"] = c["blocks"] / (sms * per_sm)
+            log(f"[B3] {c['grid']} B{c['batch']}: {c['blocks']} blocks, {per_sm} per SM, "
+                f"{c['waves']:.2f} waves on {sms} SMs")
     per_frame = next(c for c in cases if c["grid"] == "rect" and c["batch"] == 1
                 and c["dtype"] == "bfloat16")
     kernel = dict(name="flash_attention_relpos", route="cuda",
@@ -673,8 +744,10 @@ def phase_flash_kernel(torch):
                   max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"),
                   ms=per_frame["ms"], plain_ms=per_frame["plain_ms"],
                   bound_ms=per_frame["bound_ms"], bound_by=per_frame["bound_by"],
-                  library_ms=per_frame["library_ms"],
-                  shape="rect 36x64, B 1, 16 heads, D 80, bf16")
+                  library_ms=per_frame["library_ms"], event_ms=per_frame["event_ms"],
+                  batched_ms=per_frame["batched_ms"], timed_by="torch.profiler device time",
+                  blocks=per_frame["blocks"], waves=per_frame["waves"],
+                  shape="rect 36x64, B 1, 16 heads, D 80, bf16, strided q/k/v")
     return kernel, cases
 
 
@@ -758,18 +831,17 @@ def phase_window_kernel(torch):
                     q, k, v, bh_, bw_ = (x.contiguous() for x in args)
                     row["ms_contiguous"] = device_ms(
                         torch, lambda: wa.window_attention_relpos(q, k, v, bh_, bw_, (wh, ww)))
-                    flat = [x.reshape(w * heads, t, -1) for x in (q, k, v, bh_, bw_)]
-                    b3 = fa.flash_attention_relpos(*flat, (wh, ww)).reshape(w, heads, t, d)
+                    b3 = fa.flash_attention_relpos(*args, (wh, ww))
                     torch.cuda.synchronize()
                     b3_err = (b3.float() - out.float()).abs().max().item()
                     check(b3_err <= tol, f"{name}: B3 at N 196 differs from B4 by {b3_err}")
                     row["b3_vs_b4_max_abs_err"] = b3_err
                     row["b3_at_n196_ms"] = device_ms(
-                        torch, lambda: fa.flash_attention_relpos(*flat, (wh, ww)))
+                        torch, lambda: fa.flash_attention_relpos(*args, (wh, ww)))
                     mask = (bh_[..., :, None] + bw_[..., None, :]).reshape(w, heads, t, t).to(dtype)
                     row["library_ms"] = device_ms(
                         torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-                    del mask, flat, b3
+                    del mask, b3
                     log(f"[B4/B5] {label} B{b} bf16 (W {w}): err {err:.3g} | kernel "
                         f"{row['ms']:.4f} ms device (as _mh {row['ms_mh']:.4f}, contiguous "
                         f"inputs {row['ms_contiguous']:.4f}; one call by CUDA events "
@@ -954,6 +1026,10 @@ def phase_deform_kernel(torch):
            "offset shape": (x, off[..., :-2], msk), "mask shape": (x, off, msk[..., :-1]),
            "groups": (x[..., :250], off, msk), "x rank": (x[0], off, msk),
            "devices": (x, off.cpu(), msk), "radius": (x, off, msk, -1)}
+    # 2^31 patch values: broadcast views, so nothing that large is allocated
+    huge = (x[:, :1, :1].expand(1, 1024, 1024, cin), off[:, :1, :1].expand(1, 1024, 1024, -1),
+            msk[:, :1, :1].expand(1, 1024, 1024, -1))
+    bad["32-bit indexing"] = huge
     for what, a in bad.items():
         try:
             da.deform_patches_bounded(*a)
@@ -962,8 +1038,12 @@ def phase_deform_kernel(torch):
         else:
             raise SmokeFailure(f"B6: bad {what} did not raise")
     log("[B6] radius None / 16 (equal) / firing 6, conv, B 2, Cin 32 / 64 / 8, integer and "
-        f"far offsets, empty batch, bad inputs raise: ok (drop rule changed {dropped:.3f} of "
-        f"the values; conv err {conv_err})")
+        f"far offsets, empty batch, bad inputs and 2^31 patch values raise: ok (drop rule "
+        f"changed {dropped:.3f} of the values; conv err {conv_err})")
+    OCCUPANCY["deform_align"] = {f"Cin {c}, G {gg}, vec {vv}": da.occupancy(c, gg, vv)
+                                 for c, gg, vv in ((256, 16, 4), (256, 16, 1), (32, 16, 1))}
+    for inst, occ in OCCUPANCY["deform_align"].items():
+        log(f"[B6] occupancy {inst}: {json.dumps(occ)}")
 
     ms = device_ms(torch, lambda: da.deform_patches_bounded(x, off, msk))
     ms_r16 = device_ms(torch, lambda: da.deform_patches_bounded(x, off, msk, 16))
@@ -975,11 +1055,13 @@ def phase_deform_kernel(torch):
     log(f"[B6] 60x108x256, G 16: err {worst:.3g} | kernel {ms:.4f} ms device (radius 16 "
         f"{ms_r16:.4f}; one call by CUDA events {event_ms:.3f}), plain {plain_ms:.3f}, with the "
         f"matmul {conv_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); no library call computes it")
+    blocks = -(-h * w // da.pixels_per_block(cin, 4))
     kernel = dict(name="deform_patches_bounded", route="cuda",
                   source="vosesam_tpu_torch/csrc/deform_align.cu",
                   replaces="vosesam_tpu/ops/pallas/deform_align.py:210",
                   max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by=bound_by, library_ms=None, ms_radius_16=ms_r16, event_ms=event_ms,
+                  blocks=blocks, pixels_per_block=da.pixels_per_block(cin, 4),
                   conv_ms=conv_ms, conv_max_abs_err=conv_err, drop_rule_share=dropped,
                   timed_by="torch.profiler device time",
                   shape="x (1, 60, 108, 256) fp32, 16 groups, radius None")
@@ -1028,6 +1110,7 @@ def phase_binscan_probe(torch):
         else:
             raise SmokeFailure(f"B7: bad {what} did not raise")
     plain_ms = time_ms(torch, lambda: bp.binscan_probe_plain(x, y0, wy, bp.BINS), reps=3, warmup=1)
+    device = device_ms(torch, lambda: bp.binscan_probe(x, y0, wy, bp.BINS))
     # the probe's own entry point, its launches counted from 0
     bp.reset_counts()
     probe = bp.run_probe()
@@ -1041,18 +1124,73 @@ def phase_binscan_probe(torch):
     bytes_moved = 4 * (x.numel() + y0.numel() + wy.numel() + out.numel())
     t_ops = 2 * fma / FP32_FLOP_PER_S * 1e3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    log(f"[B7] err {err:.3g} | kernel {probe['ms']:.4f} ms, plain {plain_ms:.1f} ms, bound "
+    log(f"[B7] err {err:.3g} | kernel {probe['ms']:.4f} ms (device {device:.4f}), plain "
+        f"{plain_ms:.1f} ms, bound "
         f"{max(t_ops, t_bytes):.4f} ms; edge shapes and bad inputs: ok")
     kernel = dict(name="binscan_probe", route="cuda",
                   source="vosesam_tpu_torch/csrc/binscan_probe.cu",
                   replaces="scripts/exp_vpu_binscan.py:36",
-                  launches=launches, max_abs_err=err, ms=probe["ms"], plain_ms=plain_ms,
+                  launches=launches, max_abs_err=err, ms=probe["ms"], device_ms=device,
+                  plain_ms=plain_ms,
                   bound_ms=max(t_ops, t_bytes),
                   bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
                   gfma_per_s=probe["gfma_per_s"], projected_align_ms=probe["projected_align_ms"],
                   gather_align_ms=probe["gather_align_ms"], on_main_path=False,
                   shape="x (4, 640, 256), fields (4, 512, 144), 128 bins, fp32")
     return kernel, probe
+
+
+# ------------------------------------- C23: no gradient through a kernel
+
+def phase_grad_refusal(torch):
+    """Each kernel wrapper computes a forward pass only: on the card it must
+    raise under grad mode for an input that requires grad (and run under
+    torch.no_grad()), rather than return a result without a gradient."""
+    from vosesam_tpu_torch.ops.kernels import binscan_probe as bp
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+    from vosesam_tpu_torch.ops.kernels import flash_attention as fa
+    from vosesam_tpu_torch.ops.kernels import memory_read as mr
+    from vosesam_tpu_torch.ops.kernels import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    read = _read_case(torch, gen, 2, 300, 40, 64, 32, torch.float32)
+    valid = torch.ones(300, dtype=torch.bool, device="cuda")
+    attn = _attn_case(torch, gen, 1, 2, 4, 4, 16, torch.float32, False)
+    win = _window_case(torch, gen, 2, 2, 4, 4, 16, torch.float32, False)
+    deform = _deform_case(torch, gen, 1, 5, 6, 32, 16, 1.0)
+    probe = bp.probe_inputs(gen, 16, 4, 1, 2, 4, 9, pad=4)
+    calls = {
+        "fused_memory_read_shared": (lambda a: mr.fused_memory_read_shared(
+            **a, valid=valid, top_k=8), read, "mk"),
+        "fused_memory_read": (lambda a: mr.fused_memory_read(
+            **a, valid=valid.expand(2, -1), top_k=8), read, "mv"),
+        "flash_attention_relpos": (lambda a: fa.flash_attention_relpos(*a, (4, 4)), attn, 0),
+        "window_attention_relpos": (lambda a: wa.window_attention_relpos(*a, (4, 4)), win, 2),
+        "window_attention_relpos_mh": (lambda a: wa.window_attention_relpos_mh(*a, (4, 4)),
+                                       win, 3),
+        "deform_patches_bounded": (lambda a: da.deform_patches_bounded(*a), deform, 1),
+        "binscan_probe": (lambda a: bp.binscan_probe(*a, 4, groups=2), probe, 0),
+    }
+    for name, (fn, args, which) in calls.items():
+        leaf = args[which].detach().clone().requires_grad_(True)
+        if isinstance(args, dict):
+            with_grad = dict(args, **{which: leaf})
+        else:
+            with_grad = tuple(leaf if i == which else x for i, x in enumerate(args))
+        try:
+            fn(with_grad)
+        except RuntimeError as e:
+            check("no backward" in str(e), f"{name}: raised {e!r}")
+        else:
+            raise SmokeFailure(f"{name}: returned a result without a gradient under grad mode")
+        with torch.no_grad():
+            fn(with_grad)
+    torch.cuda.synchronize()
+    for mod in (bp, da, fa, mr, wa):
+        mod.reset_counts()
+    log(f"[C23] each of {len(calls)} kernel entry points raises under grad mode for an input "
+        f"that requires grad, and runs under torch.no_grad(): ok")
+    return sorted(calls)
 
 
 # ------------------------------------------------- the main path (SAM-HQ)
@@ -1720,6 +1858,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         b6, record["deform_cases"] = phase_deform_kernel(torch)
         b7, record["binscan_probe"] = phase_binscan_probe(torch)
+        record["grad_refusal"] = phase_grad_refusal(torch)
         torch.cuda.empty_cache()
         counts, record["e2e"] = phase_end_to_end(torch)
         record["rollout_fp32"] = phase_kernel_vs_plain_rollout(torch)

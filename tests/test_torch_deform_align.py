@@ -286,3 +286,25 @@ def test_probe_needs_the_card():
         pytest.skip("this checks the refusal on a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tbp.run_probe()
+
+
+@pytest.mark.parametrize("shape,last,ok", [((1, 1024, 1024, 256), 288, False),
+                                           ((1, 1000, 1000, 238), 18, True),
+                                           ((8, 4096, 4096, 16), 18, False)])
+def test_kernel_refuses_tensors_past_32_bit_indexing(shape, last, ok):
+    """The kernel indexes in 32 bits: the CUDA branch refuses patches of
+    2^31 or more values (meta tensors: nothing is allocated)."""
+    x = torch.empty(shape, device="meta")
+    off = torch.empty((*shape[:3], last), device="meta")
+    if ok:
+        tda._check_indexing(x, off)
+    else:
+        with pytest.raises(ValueError, match="32-bit indexing"):
+            tda._check_indexing(x, off)
+
+
+def test_pixels_per_block_keeps_a_few_vectors_a_thread():
+    assert tda.pixels_per_block(256, 4) == 2
+    assert tda.pixels_per_block(32, 1) == 4
+    assert tda.pixels_per_block(8, 1) == 16
+    assert tda.pixels_per_block(4096, 4) == 1

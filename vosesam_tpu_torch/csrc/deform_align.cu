@@ -19,15 +19,32 @@
 // What bounds it on the H100: bytes. At the model's shape (60 x 108 x 256
 // fp32, G 16) it reads 6.6 MB of features, 7.5 MB of offsets and 3.7 MB of
 // mask and writes 59.7 MB of patches, and does ~12 operations per output
-// value. The design therefore spends its care on the write: a thread owns
-// one 16-byte vector of one (pixel, tap, group), threads are ordered
-// (pixel, tap, group, vector) exactly as the output is laid out, so every
-// store instruction of a warp covers 512 contiguous bytes. The four corner
-// reads are 16-byte loads of the group's contiguous channels (NHWC input);
-// the field (6.6 MB) stays in L2 across the nine taps. Corner indices and
-// weights are recomputed by the cg / 4 threads that share them: cheaper than
-// exchanging them. A scalar instance covers cg not a multiple of 4 and
-// unaligned tensors.
+// value. The four corner reads of every output vector come from L2 (the
+// field stays there across the nine taps): 4x the patch bytes of L2
+// traffic. What held the first design (a thread per output vector,
+// 2.6x its byte bound) was the work around the copy: every thread decoded
+// its index with five 64-bit divides, and the cg / 4 threads of one
+// (pixel, tap, group) each reloaded the same offsets and mask and
+// recomputed the same corners. This design:
+//
+//   a block of 256 threads owns P consecutive pixels (P * 9 * Cin / 4
+//   output vectors; P = 2 at the model's shape, 3240 blocks). Phase 1: one thread per
+//   (pixel, group, tap) reads its offset pair and mask in their own layout
+//   (a warp reads 256 contiguous bytes of offsets and 128 of mask) and
+//   computes the sampling geometry once: the four corners' pixel indices
+//   (-1 outside the field) and the weights, with the floor rule of C18 and
+//   the radius drop rule. The records go to shared memory in output order
+//   (16-byte index and weight loads, conflict-free). Phase 2: threads in
+//   output order, so every store instruction of a warp covers 512
+//   contiguous bytes; each reads its record (broadcast to the cg / 4
+//   threads that share it), gathers the four corners as 16-byte loads of
+//   the group's contiguous channels (NHWC input), blends and stores with
+//   the streaming hint (__stcs: the patch tensor is read once, by the
+//   contraction right after; 4% faster than the plain store at the model's
+//   shape on the H100).
+//   All index arithmetic is 32-bit: the wrapper refuses tensors of 2^31 or
+//   more elements. A scalar instance covers cg not a multiple of 4 and
+//   unaligned tensors.
 //
 // Arithmetic: (offset + tap) first, the pixel coordinate second, each
 // rounded to fp32 on its own (no fused multiply-add across them), as both JAX
@@ -35,6 +52,11 @@
 // cell. The weights and the four-corner sum are rounded step by step in the
 // plain PyTorch version's order, so the two agree to the last bit on finite
 // inputs.
+//
+// vosesam_deform_occupancy reports the instances' registers, shared memory
+// and resident blocks per SM on the card. Built with -DVOSESAM_PROFILE,
+// thread 0 of every block stamps the global timer at the ends of its phases
+// (python -m vosesam_tpu_torch.ops.kernels.phases).
 //
 // Plain C interface (bound with ctypes); the launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -47,6 +69,22 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTaps = 9;
+
+#ifdef VOSESAM_PROFILE
+// per block: start, geometry done, done (ns)
+__device__ unsigned long long g_prof[1 << 16][4];
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+#define PROF(slot)                                                            \
+  do {                                                                        \
+    if (threadIdx.x == 0 && blockIdx.x < (1 << 16)) g_prof[blockIdx.x][slot] = now_ns(); \
+  } while (0)
+#else
+#define PROF(slot) do {} while (0)
+#endif
 
 template <int VEC> struct Vec;
 template <> struct Vec<4> { using type = float4; };
@@ -112,70 +150,141 @@ template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 deform_patches_kernel(const float* __restrict__ x, const float* __restrict__ offset,
                       const float* __restrict__ mask, float* __restrict__ out,
-                      long long total, int H, int W, int Cin, int G, int radius) {
+                      int n_pix, int P, int H, int W, int Cin, int G, int radius) {
   using V = typename Vec<VEC>::type;
-  const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (tid >= total) return;
-  const int cg = Cin / G;
-  const int vecs = cg / VEC;                 // vectors per group
-  // thread order == output order: (b, y, x, k, g, v)
-  long long t = tid;
-  const int v = static_cast<int>(t % vecs); t /= vecs;
-  const int g = static_cast<int>(t % G); t /= G;
-  const int k = static_cast<int>(t % kTaps); t /= kTaps;
-  const long long pix = t;                   // b * H * W + y * W + x
-  const int px = static_cast<int>(pix % W);
-  const int py = static_cast<int>((pix / W) % H);
-  const long long b = pix / (static_cast<long long>(W) * H);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tg = kTaps * G;              // (tap, group) samples per pixel
+  const int R = P * tg;                  // records of the block
+  int4* sIdx = reinterpret_cast<int4*>(smem);         // corner pixels, -1 outside
+  float4* sWt = reinterpret_cast<float4*>(sIdx + R);  // wx0, wx1, wy0, wy1
+  float* sM = reinterpret_cast<float*>(sWt + R);      // modulation
+  const int pix0 = blockIdx.x * P;
+  const int np = min(P, n_pix - pix0);
+  const int hw = H * W;
+  PROF(0);
 
-  const int gk = g * kTaps + k;
-  const float off_y = __ldg(offset + pix * (2LL * G * kTaps) + 2 * gk);
-  const float off_x = __ldg(offset + pix * (2LL * G * kTaps) + 2 * gk + 1);
-  const float m = __ldg(mask + pix * (static_cast<long long>(G) * kTaps) + gk);
-  const float dy = static_cast<float>(k / 3 - 1);
-  const float dx = static_cast<float>(k % 3 - 1);
+  // phase 1: the geometry of every (pixel, group, tap) of the block, once
+  const float2* off2 = reinterpret_cast<const float2*>(offset) + pix0 * tg;
+  const float* mk = mask + pix0 * tg;
+  for (int j = threadIdx.x; j < np * tg; j += kThreads) {
+    const int p = j / tg, rem = j - p * tg;  // rem = g * 9 + k, the input layout
+    const int g = rem / kTaps, k = rem - g * kTaps;
+    const int pix = pix0 + p;
+    const int img = pix / hw, yx = pix - img * hw;
+    const int py = yx / W, px = yx - py * W;
+    const float2 o = __ldg(off2 + j);        // (y, x)
+    const Axis ay = make_axis(py, o.x, static_cast<float>(k / 3 - 1), H, radius);
+    const Axis ax = make_axis(px, o.y, static_cast<float>(k % 3 - 1), W, radius);
+    const int base = img * hw;
+    int4 id;
+    id.x = (ay.in0 && ax.in0) ? base + ay.i0 * W + ax.i0 : -1;
+    id.y = (ay.in0 && ax.in1) ? base + ay.i0 * W + ax.i1 : -1;
+    id.z = (ay.in1 && ax.in0) ? base + ay.i1 * W + ax.i0 : -1;
+    id.w = (ay.in1 && ax.in1) ? base + ay.i1 * W + ax.i1 : -1;
+    const int r = (p * kTaps + k) * G + g;   // output order: (pixel, tap, group)
+    sIdx[r] = id;
+    sWt[r] = make_float4(ax.w0, ax.w1, ay.w0, ay.w1);
+    sM[r] = __ldg(mk + j);
+  }
+  __syncthreads();
+  PROF(1);
 
-  const Axis ay = make_axis(py, off_y, dy, H, radius);
-  const Axis ax = make_axis(px, off_x, dx, W, radius);
+  // phase 2: output vectors in output order, (pixel, tap, group, vector)
+  const int vecs = Cin / G / VEC;        // vectors per group
+  const int row = Cin / VEC;             // vectors per (pixel, tap)
+  V* ob = reinterpret_cast<V*>(out + pix0 * kTaps * Cin);
+  for (int u = threadIdx.x; u < np * tg * vecs; u += kThreads) {
+    const int r = u / vecs;
+    const int ch = (u - (u / row) * row) * VEC;
+    const int4 id = sIdx[r];
+    const float4 wt = sWt[r];
+    const float* xc = x + ch;
+    const V zero = zero_v(V());
+    const V v00 = id.x >= 0 ? ldv(reinterpret_cast<const V*>(xc + id.x * Cin)) : zero;
+    const V v01 = id.y >= 0 ? ldv(reinterpret_cast<const V*>(xc + id.y * Cin)) : zero;
+    const V v10 = id.z >= 0 ? ldv(reinterpret_cast<const V*>(xc + id.z * Cin)) : zero;
+    const V v11 = id.w >= 0 ? ldv(reinterpret_cast<const V*>(xc + id.w * Cin)) : zero;
+    const V res = blend(v00, v01, v10, v11, wt.x, wt.y, wt.z, wt.w, sM[r]);
+    __stcs(ob + u, res);  // streaming: the patches are read once, by the contraction
+  }
+  PROF(2);
+}
 
-  const int ch = g * cg + v * VEC;
-  const float* xb = x + b * (static_cast<long long>(H) * W * Cin) + ch;
-  auto corner = [&](int yi, int xi, bool inb) -> V {
-    if (!inb) return zero_v(V());
-    return ldv(reinterpret_cast<const V*>(xb + (static_cast<long long>(yi) * W + xi) * Cin));
-  };
-  const V v00 = corner(ay.i0, ax.i0, ay.in0 && ax.in0);
-  const V v01 = corner(ay.i0, ax.i1, ay.in0 && ax.in1);
-  const V v10 = corner(ay.i1, ax.i0, ay.in1 && ax.in0);
-  const V v11 = corner(ay.i1, ax.i1, ay.in1 && ax.in1);
+size_t smem_bytes(int P, int G) { return (size_t)P * kTaps * G * 36; }
 
-  const V r = blend(v00, v01, v10, v11, ax.w0, ax.w1, ay.w0, ay.w1, m);
-  *reinterpret_cast<V*>(out + (pix * kTaps + k) * Cin + ch) = r;
+template <typename K>
+int prepare(K kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+// info: registers per thread, static shared bytes, dynamic shared bytes,
+// resident blocks per SM, threads per block, local (spill) bytes per thread.
+template <typename K>
+int occupancy(K kernel, size_t smem, int* info) {
+  cudaFuncAttributes fa;
+  cudaError_t err = (cudaError_t)prepare(kernel, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = fa.numRegs;
+  info[1] = (int)fa.sharedSizeBytes;
+  info[2] = (int)smem;
+  info[3] = blocks;
+  info[4] = kThreads;
+  info[5] = (int)fa.localSizeBytes;
+  return 0;
 }
 
 }  // namespace
 
 // x (B, H, W, Cin), offset (B, H, W, 2 * G * 9), mask (B, H, W, G * 9),
-// out (B, H, W, 9, Cin), all contiguous fp32. radius < 0: unbounded.
-// vec: 4 for 16-byte accesses (cg % 4 == 0 and 16-byte aligned x / out), else 1.
+// out (B, H, W, 9, Cin), all contiguous fp32, offset 8-byte aligned, fewer
+// than 2^31 elements each. radius < 0: unbounded. vec: 4 for 16-byte
+// accesses (cg % 4 == 0 and 16-byte aligned x / out), else 1.
+// pixels: pixels per block (P).
 extern "C" int vosesam_deform_patches(
     const float* x, const float* offset, const float* mask, float* out,
-    int B, int H, int W, int Cin, int G, int radius, int vec, void* stream_ptr) {
-  if (B < 0 || H < 1 || W < 1 || G < 1 || Cin < G || Cin % G != 0) return (int)cudaErrorInvalidValue;
+    int B, int H, int W, int Cin, int G, int radius, int vec, int pixels,
+    void* stream_ptr) {
+  if (B < 0 || H < 1 || W < 1 || G < 1 || Cin < G || Cin % G != 0 || pixels < 1)
+    return (int)cudaErrorInvalidValue;
   if (vec != 1 && vec != 4) return (int)cudaErrorInvalidValue;
   if (vec == 4 && (Cin / G) % 4 != 0) return (int)cudaErrorInvalidValue;
+  const long long n_pix = (long long)B * H * W;
+  if (n_pix * kTaps * Cin > 2147483647LL || n_pix * 2 * kTaps * G > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0) return (int)cudaSuccess;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long total = static_cast<long long>(B) * H * W * kTaps * (Cin / vec);
-  if (total == 0) return (int)cudaSuccess;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(blocks));
+  const size_t smem = smem_bytes(pixels, G);
+  const unsigned blocks = (unsigned)((n_pix + pixels - 1) / pixels);
   if (vec == 4) {
-    deform_patches_kernel<4><<<grid, kThreads, 0, stream>>>(
-        x, offset, mask, out, total, H, W, Cin, G, radius);
+    const int err = prepare(deform_patches_kernel<4>, smem);
+    if (err != 0) return err;
+    deform_patches_kernel<4><<<blocks, kThreads, smem, stream>>>(
+        x, offset, mask, out, (int)n_pix, pixels, H, W, Cin, G, radius);
   } else {
-    deform_patches_kernel<1><<<grid, kThreads, 0, stream>>>(
-        x, offset, mask, out, total, H, W, Cin, G, radius);
+    const int err = prepare(deform_patches_kernel<1>, smem);
+    if (err != 0) return err;
+    deform_patches_kernel<1><<<blocks, kThreads, smem, stream>>>(
+        x, offset, mask, out, (int)n_pix, pixels, H, W, Cin, G, radius);
   }
   return (int)cudaGetLastError();
 }
+
+// The occupancy of the instance that a launch at (vec, pixels, G) selects,
+// as the card reports it; info gets six ints (see occupancy()).
+extern "C" int vosesam_deform_occupancy(int vec, int pixels, int G, int* info) {
+  if (pixels < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(pixels, G);
+  return vec == 4 ? occupancy(deform_patches_kernel<4>, smem, info)
+                  : occupancy(deform_patches_kernel<1>, smem, info);
+}
+
+#ifdef VOSESAM_PROFILE
+extern "C" int vosesam_deform_profile(void* dst, int n_blocks) {
+  return (int)cudaMemcpyFromSymbol(dst, g_prof, (size_t)n_blocks * 4 * 8);
+}
+#endif

@@ -1,7 +1,8 @@
-// Warp-level tensor-core helpers shared by the attention kernels
-// (flash_attention.cu, window_attention.cu): the mma.sync m16n8k16 bf16
-// product with fp32 accumulation, the moves that feed its fragments and
-// the asynchronous copy into shared memory.
+// Tensor-core helpers shared by the attention kernels (flash_attention.cu,
+// window_attention.cu): the warp-level mma.sync m16n8k16 bf16 product with
+// fp32 accumulation, the moves that feed its fragments, the asynchronous
+// copy into shared memory, and the warpgroup-level wgmma products (sm_90a)
+// with their shared-memory descriptors and fences.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row):  a0 = A[g][2t..], a1 = A[g+8][2t..],
@@ -77,6 +78,92 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_r
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// ---------------------------------------------------------------- wgmma
+// A warpgroup (4 warps) computes a 64-row product; warp w % 4 holds rows
+// 16 (w % 4) .. + 15 in the layouts above: A from registers as the m16n8k16
+// A-fragment of its 16 rows, D as one m16n8 C-fragment per 8 columns. B
+// comes from shared memory through a descriptor of no-swizzle core
+// matrices (8 rows x 16 bytes, 128 contiguous bytes each): for a K-major B
+// (k contiguous) LBO is the byte stride between the two core matrices along
+// k and SBO the stride between 8-row groups along n; for an MN-major B (n
+// contiguous, tnsp 1) SBO is the stride between core matrices along n and
+// LBO the stride between 8-row groups along k (CUTLASS's canonical layouts,
+// cute/atom/mma_traits_sm90_gmma.hpp).
+
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Order this thread's register writes before the wgmma that reads them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Generic-proxy writes (cp.async, st.shared) of this thread made visible to
+// the async proxy that wgmma reads shared memory through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma's registers across the
+// asynchronous product's start and wait.
+__device__ __forceinline__ void fence_operands(float (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int M>
+__device__ __forceinline__ void fence_operands(float (&r)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) fence_operands(r[i]);
+}
+
+// D (64 x 64, fp32) = A (64 x 16, bf16, registers) . B (16 x 64, K-major)
+// + (accumulate ? D : 0); d[j] is the C-fragment of columns 8j .. 8j + 7.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 16, fp32) += A (64 x 16, bf16, registers) . B (16 x 16, MN-major:
+// tnsp 1); d0, d1 the C-fragments of columns 0..7 and 8..15.
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d0)[4], float (&d1)[4],
+                                                   const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace vosesam

@@ -141,19 +141,14 @@ def _attention(x: torch.Tensor, attn: _Attention, hw: Tuple[int, int],
     q, k, v = qkv.unbind(2)
     if global_block:
         bias_h, bias_w = factorized_rel_pos_bias(q, attn.rel_pos_h, attn.rel_pos_w, hw)
-
-        def heads_first(t):
-            return t.transpose(1, 2).reshape(b * heads, n, hd).contiguous()
-
-        args = (heads_first(q), heads_first(k), heads_first(v),
-                bias_h.reshape(b * heads, n, h).contiguous(),
-                bias_w.reshape(b * heads, n, w).contiguous(), hw)
+        # the strided (b, heads, n, hd) views of the fused projection, as they are
+        args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                bias_h.contiguous(), bias_w.contiguous(), hw)
         if cfg.use_flash_attention:
             out = fa.flash_attention_relpos(*args)
         else:
             out = fa.flash_attention_relpos_plain(*args)
-        out = out.reshape(b, heads, n, hd).transpose(1, 2).reshape(b, n, c)
-        return linear(out, attn.proj).reshape(b, h, w, c)
+        return linear(out.transpose(1, 2).reshape(b, n, c), attn.proj).reshape(b, h, w, c)
     impl = cfg.windowed_attention_impl
     if (b if windows_per_frame is None else windows_per_frame) == 1:
         impl = "xla"

@@ -33,6 +33,8 @@ from typing import Dict
 
 import torch
 
+from vosesam_tpu_torch.ops.kernels._autograd import refuse_grad
+
 # Launches of the kernel, and plain calls.
 COUNTS: Dict[str, int] = {"binscan_probe": 0, "plain": 0}
 
@@ -120,6 +122,7 @@ def binscan_probe(
         return binscan_probe_plain(x, y0, wy, bins, groups)
     if x.device.type != "cuda":
         raise ValueError(f"binscan_probe: no kernel for device {x.device}")
+    refuse_grad("binscan_probe", x, wy)
     x, y0, wy = x.contiguous(), y0.contiguous(), wy.contiguous()
     n_tiles, p, kg = y0.shape
     cin = x.shape[-1]

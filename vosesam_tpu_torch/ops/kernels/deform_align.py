@@ -12,7 +12,10 @@ Replaces the Pallas TPU kernel `vosesam_tpu/ops/pallas/deform_align.py:210
 deform_patches_bounded`, which scans the displacement bins of a bounded
 window because a TPU cannot gather. For CUDA tensors the wrapper launches
 the hand-written gather kernel `csrc/deform_align.cu` (its header says what
-bounds it on the H100 and what the design does about it). `radius=None` is
+bounds it on the H100 and what the design does about it: a block per
+`pixels_per_block` pixels computes each sample's geometry once, then
+writes the patches in output order). `occupancy` reports what the card
+makes of an instance. `radius=None` is
 the unbounded function, equal to the gather form
 `vosesam_tpu/models/e2fgvi/modules.py:161 modulated_deform_conv` samples
 with; `radius=r` adds the TPU kernel's drop rule: a corner whose integer
@@ -35,10 +38,13 @@ from typing import Dict, Optional
 
 import torch
 
+from vosesam_tpu_torch.ops.kernels._autograd import refuse_grad
+
 # Launches of the kernel, and plain calls.
 COUNTS: Dict[str, int] = {"deform_patches_bounded": 0, "plain": 0}
 
 TAPS = 9
+INT32_MAX = 2 ** 31 - 1     # the kernel indexes in 32 bits
 
 
 def reset_counts() -> None:
@@ -111,9 +117,37 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vosesam_deform_patches
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def pixels_per_block(cin: int, vec: int) -> int:
+    """Pixels of one 256-thread block: about four and a half output vectors a
+    thread (2 pixels at Cin 256 with 16-byte vectors: 3240 blocks at the
+    model's shape, faster on the H100 than 4 or more pixels a block)."""
+    return max(1, 1152 // (TAPS * cin // vec))
+
+
+OCCUPANCY_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                  "blocks_per_sm", "threads_per_block", "local_bytes")
+
+
+def occupancy(cin: int, groups: int, vec: int = 4) -> Dict[str, int]:
+    """Registers, shared memory and resident blocks per SM of the instance a
+    launch at (Cin, G) with `vec`-float accesses selects, as the card reports
+    them, and the pixels per block."""
+    fn = _lib().vosesam_deform_occupancy
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
+    info = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    pixels = pixels_per_block(cin, vec)
+    rc = fn(vec, pixels, groups, info)
+    if rc != 0:
+        raise RuntimeError(f"deform_align occupancy query failed: CUDA error {rc}")
+    return dict(zip(OCCUPANCY_KEYS, info), pixels_per_block=pixels)
 
 
 def _check(x, offset, mask, radius, fn: str = "deform_patches_bounded") -> int:
@@ -140,6 +174,17 @@ def _check(x, offset, mask, radius, fn: str = "deform_patches_bounded") -> int:
     return g
 
 
+def _check_indexing(x, offset, fn: str = "deform_patches_bounded") -> None:
+    """Raise where the kernel's 32-bit index arithmetic would overflow: the
+    patches (B, H, W, 9, Cin) and the offsets must each hold fewer than 2^31
+    values."""
+    b, h, w, cin = x.shape
+    n_out = b * h * w * TAPS * cin
+    if n_out > INT32_MAX or offset.numel() > INT32_MAX:
+        raise ValueError(f"{fn}: {n_out} patch values or {offset.numel()} offsets exceed the "
+                         f"kernel's 32-bit indexing ({INT32_MAX})")
+
+
 def deform_patches_bounded(
     x: torch.Tensor,        # (B, H, W, Cin) fp32 features, channel-last
     offset: torch.Tensor,   # (B, H, W, 2 * G * 9) fp32, (y, x) pairs per (group, tap)
@@ -152,7 +197,11 @@ def deform_patches_bounded(
         return deform_patches_plain(x, offset, mask, radius)
     if x.device.type != "cuda":
         raise ValueError(f"deform_patches_bounded: no kernel for device {x.device}")
+    _check_indexing(x, offset)
+    refuse_grad("deform_patches_bounded", x, offset, mask)
     x, offset, mask = x.contiguous(), offset.contiguous(), mask.contiguous()
+    if offset.data_ptr() % 8:              # the kernel reads (y, x) pairs as float2
+        offset = offset.clone()
     b, h, w, cin = x.shape
     out = torch.empty((b, h, w, TAPS, cin), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -162,7 +211,7 @@ def deform_patches_bounded(
     rc = _lib().vosesam_deform_patches(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), out.data_ptr(),
         b, h, w, cin, g, -1 if radius is None else int(radius), vec,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        pixels_per_block(cin, vec), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"deform_patches_bounded kernel launch failed: CUDA error {rc}")
     COUNTS["deform_patches_bounded"] += 1

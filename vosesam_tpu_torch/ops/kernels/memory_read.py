@@ -34,6 +34,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from vosesam_tpu_torch.ops.kernels._autograd import refuse_grad
 from vosesam_tpu_torch.ops.memory_attention import (
     get_similarity,
     read_memory_multiobject,
@@ -350,6 +351,7 @@ def fused_memory_read_shared(
     o, m, _ = mv.shape
     k = _check_top_k("fused_memory_read_shared", top_k, m)
     _check_inputs("fused_memory_read_shared", mk, ms, qk, qe, mv, valid, (m,))
+    refuse_grad("fused_memory_read_shared", mk, ms, qk, qe, mv)
     live = m if live_end is None else max(0, min(int(live_end), m))
     if m == 0:
         usage = torch.zeros((0,), device=mv.device) if return_usage else None
@@ -377,6 +379,7 @@ def fused_memory_read(
     o, m, _ = mv.shape
     k = _check_top_k("fused_memory_read", top_k, m)
     _check_inputs("fused_memory_read", mk, ms, qk, qe, mv, valid, (o, m))
+    refuse_grad("fused_memory_read", mk, ms, qk, qe, mv)
     if m == 0 or o == 0:
         usage = torch.zeros((m,), device=mv.device) if return_usage else None
         return torch.zeros((o, qk.shape[0], mv.shape[-1]), device=mv.device), usage

@@ -34,6 +34,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from vosesam_tpu_torch.ops.kernels._autograd import refuse_grad
+
 # Launches of the kernel under each TPU kernel's name, and plain calls.
 COUNTS: Dict[str, int] = {"window_attention_relpos": 0,
                           "window_attention_relpos_mh": 0, "plain": 0}
@@ -128,6 +130,7 @@ def _run(name: str, q, k, v, bias_h, bias_w, window_hw) -> torch.Tensor:
     if q.device.type == "cpu":
         return window_attention_relpos_plain(q, k, v, bias_h, bias_w, window_hw)
     _check(q, k, v, bias_h, bias_w, window_hw, name)
+    refuse_grad(name, q, k, v, bias_h, bias_w)
     w, heads, t, d = q.shape
     out = torch.empty((w, t, heads, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
