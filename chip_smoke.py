@@ -59,6 +59,10 @@ Phases (each one that fails exits non-zero):
      two objects seeded on frame 0 and a third added on frame 40;
   4. XMem kernel vs plain end to end: 16 frames in fp32 twice, once through
      the kernels and once with `MemoryConfig(fused_read=False)`;
+  4b. C24: the share of query rows whose top-k slots, as the memory-read
+     kernels admit them from their own bf16 similarity, differ from
+     `topk_softmax` on `get_similarity`'s matrix, at phase 2's shapes and
+     over every read of phase 3's rollout (logged against 0.1%);
   5. the main path: XMem + SAM-HQ vit_h refinement (`both_neg`, point
      algorithm C, the 0.94 gate, rect encode, 2 objects, bf16): `generator`
      over 12 frames, `generator_chunked(chunk=8, paint=True)` over 25, and
@@ -90,8 +94,18 @@ Phases (each one that fails exits non-zero):
      with `window_batch=2` and with TF32 off; one window's
      `generator_forward` through the kernel and through the plain sampling
      (TF32 off); `inpaint` over 64 frames in two subsets at `num_blocks=2`.
+  9. the evaluation harness: a synthetic tree at
+     480x854 with PNG frames in a temporary directory, the entry points'
+     models (XMem-s012 widths, SAM-HQ vit_h, square encode, bf16): DAVIS
+     (2 videos of 16 frames) with `baseline` and `both_neg_C` per frame and
+     `both_neg_C` chunk 8, LongDataset (24 frames, ground truth every 8th,
+     `baseline`), LVOS (12 frames, masks saved) and OVIS (8 frames, RLE
+     ground truth), `both_neg_C`; every CSV with the JAX columns and finite
+     J / F / AP, saved palette PNGs equal to the generator's masks, chunked
+     masks >= 99.9% equal to per-frame masks, B1 and B3 launched and no
+     plain call; ms per frame per run on the host clock.
 Kernel launch counts are set to 0 right before each main-path run (phases
-3, 5, 7 and 8) and read right after; the `kernels` line sums them (B7, a
+3, 5, 7, 8 and 9) and read right after; the `kernels` line sums them (B7, a
 probe on no product path, counts its own run in phase 2e).
 The last two lines are the `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
@@ -551,6 +565,176 @@ def phase_kernel_vs_plain_rollout(torch, n_frames: int = 16, add_at: int = 8):
                    max_dprob=max(f["max_dprob"] for f in per_frame))
     log(f"[rollout fp32] kernel vs plain: {json.dumps(summary)}")
     return dict(summary, per_frame=per_frame)
+
+
+# ------------------------- C24: the fused bf16 similarity near the k-th value
+
+C24_LIMIT = 1e-3   # share of query rows whose admitted slots may differ (ROADMAP C24)
+
+
+def _kernel_admitted(torch, mr, call, r: int, q: int, m: int):
+    """Run one fused read and return the slots its kernels admitted, (r, q,
+    m) bool, and the (r, q) rows whose set is incomplete. The apply kernel
+    leaves each (validity row, split, query, warp)'s last admitted entries
+    in its scratch (`ecount` / `eslot`), and flags the lists that overflowed
+    into a readout partial (`rflag`): those rows are not counted. The
+    scratch is read through the wrapper's `_workspace`, wrapped for this
+    call only."""
+    seen = {}
+    make = mr._workspace
+
+    def keep(dev, parts):
+        seen.update(make(dev, parts))
+        return seen
+
+    mr._workspace = keep
+    try:
+        call()
+    finally:
+        mr._workspace = make
+    torch.cuda.synchronize()
+    ecount, eslot, rflag = seen["ecount"], seen["eslot"], seen["rflag"]
+    entries = torch.arange(eslot.shape[-1], device="cuda") < ecount[..., None]
+    ri, _, qi, _, _ = entries.nonzero(as_tuple=True)
+    adm = torch.zeros((r, q, m), dtype=torch.bool, device="cuda")
+    adm[ri, qi, eslot[entries].long()] = True
+    overflow = rflag.bool().any(dim=3).any(dim=1)
+    return adm, overflow
+
+
+def _plain_admitted(torch, sim, valid_rows, k: int, noise=None):
+    """`topk_softmax`'s admitted slots of each validity row: valid and at
+    least the k-th largest valid similarity (duplicates counted); and, with
+    `noise` (Q,), the rows whose k-th and (k+1)-th values lie within twice
+    `noise` of each other, where two sums of the same terms in another order
+    may swap them."""
+    from vosesam_tpu_torch.ops.memory_attention import NEG_INF
+
+    out, near = [], []
+    for vr in valid_rows:
+        masked = torch.where(vr[None], sim, torch.full((), NEG_INF, device=sim.device))
+        top = torch.topk(masked, min(k + 1, sim.shape[-1]), dim=-1).values
+        kth = top[:, min(k, sim.shape[-1]) - 1:min(k, sim.shape[-1])]
+        out.append((masked >= kth) & vr[None])
+        if noise is not None:
+            near.append((top[:, -1] - kth[:, 0]).abs() <= 2 * noise)
+    return torch.stack(out), (torch.stack(near) if near else None)
+
+
+def _c24_read(torch, mr, shared: bool, mk, ms, qk, qe, mv, valid, k, live_end=None):
+    """One read's counts of query rows: (compared, differing kernel vs
+    plain, whose kernel set is incomplete, differing torch form of the
+    fused similarity vs plain, all, differing within the summation-order
+    noise)."""
+    from vosesam_tpu_torch.ops.memory_attention import get_similarity
+
+    m = mk.shape[0]
+    q = qk.shape[0]
+    if shared:
+        valid_rows = valid[None]
+        if live_end is not None:
+            valid_rows = valid_rows & (torch.arange(m, device="cuda") < live_end)
+        call = lambda: mr.fused_memory_read_shared(  # noqa: E731
+            mk, ms, qk, qe, mv, valid, k, return_usage=True, live_end=live_end)
+    else:
+        valid_rows = valid
+        call = lambda: mr.fused_memory_read(  # noqa: E731
+            mk, ms, qk, qe, mv, valid, k, return_usage=True)
+    adm, overflow = _kernel_admitted(torch, mr, call, valid_rows.shape[0], q, m)
+    sim = get_similarity(mk, ms, qk, qe)
+    fused_sim = mr.similarity_from_operands(mr.similarity_operands(mk, ms, qk, qe))
+    # the two fp32 sums' disagreement per row: the scale of summation-order noise
+    noise = (fused_sim - sim).abs().amax(dim=-1)
+    plain, near = _plain_admitted(torch, sim, valid_rows, k, noise)
+    fused, _ = _plain_admitted(torch, fused_sim, valid_rows, k)
+    del sim, fused_sim
+    differ = (adm != plain).any(-1) & ~overflow
+    torch_form = (fused != plain).any(-1)
+    return (int((~overflow).sum()), int(differ.sum()), int(overflow.sum()),
+            int(torch_form.sum()), plain.numel() // m, int((differ & near).sum()))
+
+
+def phase_c24(torch, n_frames: int = 64, add_at: int = 40):
+    """C24: with bf16 keys the kernels compute the similarity themselves
+    (the four split products on the tensor cores, summed in their own
+    order), where `topk_softmax` reads `get_similarity`'s matrix. Share of
+    query rows whose admitted top-k slots differ between the two: at phase
+    2's shapes (B1 and B2), and over every read of phase 3's bf16 rollout.
+    Beside it, the same share for the torch form of the fused similarity
+    (`similarity_from_operands`). Logged beside C24_LIMIT, the share
+    ROADMAP C24 allows."""
+    from vosesam_tpu_torch.ops.kernels import memory_read as mr
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    o, q, ck, cv, k = 2, 1620, 64, 512, 30
+    nl, hw = 1000, 1620
+    m = nl + 10 * hw
+    live_end = nl + 9 * hw
+    case = _read_case(torch, gen, o, m, q, ck, cv, torch.bfloat16)
+    slot = torch.arange(m, device="cuda")
+    shared_valid = (slot < live_end) & ~((slot >= 800) & (slot < nl))
+    per_obj_valid = torch.stack([slot < live_end,
+                                 (slot < 800) | ((slot >= live_end - 3 * hw) & (slot < live_end))])
+    args = [case[n] for n in ("mk", "ms", "qk", "qe", "mv")]
+    res = {"B1 at phase 2's shape": _c24_read(torch, mr, True, *args, shared_valid, k, live_end),
+           "B2 at phase 2's shape": _c24_read(torch, mr, False, *args, per_obj_valid, k)}
+
+    rollout = [0, 0, 0, 0, 0, 0]
+    reads = {"shared": 0, "per_object": 0}
+    shared_fn, per_obj_fn = mr.fused_memory_read_shared, mr.fused_memory_read
+
+    def tally(r):
+        for i, v in enumerate(r):
+            rollout[i] += v
+
+    def shared_spy(mk, ms, qk, qe, mv, valid, top_k, return_usage=False, live_end=None):
+        mr.fused_memory_read_shared = shared_fn
+        try:
+            tally(_c24_read(torch, mr, True, mk, ms, qk, qe, mv, valid, top_k, live_end))
+            reads["shared"] += 1
+            return shared_fn(mk, ms, qk, qe, mv, valid, top_k, return_usage, live_end)
+        finally:
+            mr.fused_memory_read_shared = shared_spy
+
+    def per_obj_spy(mk, ms, qk, qe, mv, valid, top_k, return_usage=False):
+        mr.fused_memory_read = per_obj_fn
+        try:
+            tally(_c24_read(torch, mr, False, mk, ms, qk, qe, mv, valid, top_k))
+            reads["per_object"] += 1
+            return per_obj_fn(mk, ms, qk, qe, mv, valid, top_k, return_usage)
+        finally:
+            mr.fused_memory_read = per_obj_spy
+
+    ta = _make_tracker("bfloat16")
+    mr.fused_memory_read_shared, mr.fused_memory_read = shared_spy, per_obj_spy
+    try:
+        _drive(ta, moving_frames(n_frames, 480, 854), add_at)
+    finally:
+        mr.fused_memory_read_shared, mr.fused_memory_read = shared_fn, per_obj_fn
+    del ta
+    torch.cuda.empty_cache()
+    check(reads["shared"] > 0 and reads["per_object"] > 0, f"C24: reads {reads}")
+    res[f"phase 3's rollout ({n_frames} frames, {reads})"] = tuple(rollout)
+    out = {}
+    for name, (rows, differ, overflow, torch_form, all_rows, near) in res.items():
+        out[name] = dict(rows_compared=rows, rows_differing=differ, share=differ / max(rows, 1),
+                         rows_differing_at_a_near_tie=near, rows_incomplete=overflow,
+                         torch_form_rows_differing=torch_form,
+                         torch_form_share=torch_form / max(all_rows, 1),
+                         within_limit=differ / max(rows, 1) <= C24_LIMIT)
+        log(f"[C24] {name}: {differ} of {rows} query rows admit other slots than "
+            f"topk_softmax on get_similarity ({differ / max(rows, 1):.3%}, limit "
+            f"{C24_LIMIT:.1%}; {near} of them where the k-th and (k+1)-th values lie within "
+            f"twice the row's largest difference between the fused fp32 similarity and "
+            f"get_similarity's; {overflow} rows with an overflowed list not compared); torch form "
+            f"of the fused similarity: {torch_form} of {all_rows} rows "
+            f"({torch_form / max(all_rows, 1):.3%})")
+    # a measurement: the share is logged and recorded (ROADMAP C24), and the
+    # phase fails only where it could not compare the rows
+    for name, r in out.items():
+        check(r["rows_compared"] > 0 and r["rows_incomplete"] <= r["rows_compared"] // 100,
+              f"C24: {name}: {r['rows_compared']} rows compared, {r['rows_incomplete']} not")
+    return out
 
 
 # ------------------------------------------------------------- B3 (flash)
@@ -1092,8 +1276,11 @@ def phase_binscan_probe(torch):
           and bool(torch.isfinite(out).all()), f"B7: output {tuple(out.shape)}")
     check(err <= BINSCAN_TOL, f"B7: max abs err {err} > {BINSCAN_TOL}")
     check(bool(out.any()), "B7: the scan selected nothing")
+    # the kernel stages 32 shifts a window for blocks of 256 / G rows: 100
+    # rows and 70 bins end in a 4-row block and a 6-shift window
     for p, bins, tiles, g, cg, taps in ((37, 11, 3, 4, 8, 5), (64, 1, 1, 16, 16, 9),
-                                        (8, 40, 2, 3, 1, 2), (16, 0, 1, 2, 4, 9)):
+                                        (8, 40, 2, 3, 1, 2), (16, 0, 1, 2, 4, 9),
+                                        (100, 70, 2, 16, 16, 9), (50, 33, 1, 8, 2, 3)):
         xs, ys, ws = bp.probe_inputs(gen, p, bins, tiles, g, cg, taps, pad=max(bins, 1))
         got = bp.binscan_probe(xs, ys, ws, bins, groups=g)
         torch.cuda.synchronize()
@@ -1111,6 +1298,8 @@ def phase_binscan_probe(torch):
             raise SmokeFailure(f"B7: bad {what} did not raise")
     plain_ms = time_ms(torch, lambda: bp.binscan_probe_plain(x, y0, wy, bp.BINS), reps=3, warmup=1)
     device = device_ms(torch, lambda: bp.binscan_probe(x, y0, wy, bp.BINS))
+    OCCUPANCY["binscan_probe"] = bp.occupancy()
+    log(f"[B7] occupancy: {json.dumps(OCCUPANCY['binscan_probe'])}")
     # the probe's own entry point, its launches counted from 0
     bp.reset_counts()
     probe = bp.run_probe()
@@ -1124,15 +1313,17 @@ def phase_binscan_probe(torch):
     bytes_moved = 4 * (x.numel() + y0.numel() + wy.numel() + out.numel())
     t_ops = 2 * fma / FP32_FLOP_PER_S * 1e3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    log(f"[B7] err {err:.3g} | kernel {probe['ms']:.4f} ms (device {device:.4f}), plain "
-        f"{plain_ms:.1f} ms, bound "
-        f"{max(t_ops, t_bytes):.4f} ms; edge shapes and bad inputs: ok")
+    bound = max(t_ops, t_bytes)
+    log(f"[B7] err {err:.3g} | kernel {device:.4f} ms device ({bound / device:.1%} of the "
+        f"bound; the probe's own reading {probe['ms']:.4f}, CUDA events over back-to-back "
+        f"calls {probe['event_ms']:.4f}), plain {plain_ms:.1f} ms, bound {bound:.4f} ms; edge "
+        f"shapes and bad inputs: ok")
     kernel = dict(name="binscan_probe", route="cuda",
                   source="vosesam_tpu_torch/csrc/binscan_probe.cu",
                   replaces="scripts/exp_vpu_binscan.py:36",
-                  launches=launches, max_abs_err=err, ms=probe["ms"], device_ms=device,
-                  plain_ms=plain_ms,
-                  bound_ms=max(t_ops, t_bytes),
+                  launches=launches, max_abs_err=err, ms=device, probe_ms=probe["ms"],
+                  event_ms=probe["event_ms"], plain_ms=plain_ms, bound_ms=bound,
+                  share_of_bound=bound / device,
                   bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
                   gfma_per_s=probe["gfma_per_s"], projected_align_ms=probe["projected_align_ms"],
                   gather_align_ms=probe["gather_align_ms"], on_main_path=False,
@@ -1376,6 +1567,234 @@ def phase_main_path(torch, n_frames: int = 12, n_chunked: int = 25, n_square: in
     del sq
     torch.cuda.empty_cache()
     return runs, init_s
+
+
+# ------------------------------------------------ the evaluation harness (A9)
+
+WHOLE_COLUMNS = ["J_mean", "J_recall", "J_decay", "F_mean", "F_recall", "F_decay", "JF_mean",
+                 "AP", "AP50", "AP75", "AP_small", "AP_medium", "AP_large", "fps", "video"]
+PER_OBJECT_COLUMNS = ["video", "object", "J_mean", "F_mean"]
+LEDGER_COLUMNS = ["run", "dataset", "JF_mean", "J_mean", "F_mean", "AP", "fps"]
+
+
+def _read_csv(path):
+    import csv
+
+    check(os.path.exists(path), f"eval: {path} was not written")
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], [dict(zip(rows[0], r)) for r in rows[1:]]
+
+
+def _check_run_csvs(run_dir, videos):
+    """Check a run's CSVs; returns {video: the generator's ms per frame}
+    (the runner's fps column: the generator alone, on the host clock)."""
+    header, whole = _read_csv(os.path.join(run_dir, "whole_metrics.csv"))
+    check(header == WHOLE_COLUMNS, f"eval: {run_dir} whole_metrics columns {header}")
+    check([r["video"] for r in whole] == videos, f"eval: {run_dir} videos {whole}")
+    for r in whole:
+        for k in ("J_mean", "F_mean", "JF_mean", "AP"):
+            check(np.isfinite(float(r[k])), f"eval: {run_dir} {r['video']} {k} = {r[k]!r}")
+    header, rows = _read_csv(os.path.join(run_dir, "per_object_metrics.csv"))
+    check(header == PER_OBJECT_COLUMNS and rows, f"eval: {run_dir} per-object {header}")
+    for r in rows:
+        check(np.isfinite(float(r["J_mean"])) and np.isfinite(float(r["F_mean"])),
+              f"eval: {run_dir} per-object row {r}")
+    return {r["video"]: 1e3 / float(r["fps"]) for r in whole}
+
+
+def _keep_masks(ta, store):
+    """Wrap the facade's generators so that each video's masks are kept as
+    the harness received them."""
+    gen, gen_chunked = ta.generator, ta.generator_chunked
+
+    def generator(frames, template):
+        out = gen(frames, template)
+        store.append(out[0])
+        return out
+
+    def generator_chunked(frames, template, chunk=4):
+        out = gen_chunked(frames, template, chunk=chunk)
+        store.append(out[0])
+        return out
+
+    ta.generator, ta.generator_chunked = generator, generator_chunked
+
+
+def _check_saved(run_dir, video, names, masks):
+    from vosesam_tpu_torch.eval.palette import load_palette_mask
+
+    for name, m in zip(names, masks):
+        path = os.path.join(run_dir, "masks", video, os.path.splitext(name)[0] + ".png")
+        check(os.path.exists(path), f"eval: {path} was not saved")
+        check(np.array_equal(load_palette_mask(path), m),
+              f"eval: {path} does not decode to the generator's mask")
+
+
+def phase_eval(torch, n_frames: int = 16, long_frames: int = 24, long_every: int = 8,
+               lvos_frames: int = 12, ovis_frames: int = 8, hw=(480, 854)):
+    """The evaluation harness end to end on the card, in a temporary
+    directory: a synthetic tree at 480 x 854 with PNG frames
+    (`eval/synthetic.py`); the entry points' models (XMem-s012 widths,
+    SAM-HQ vit_h at full width, the official square encode, bf16, seeded
+    random weights); `run_model_on_davis_set` on 2 videos of `n_frames`
+    (one object; two objects on frame 0) with `baseline` and `both_neg_C`
+    per frame and `both_neg_C` with chunk 8; `run_model_on_longdata_set`
+    (`baseline`, annotations every `long_every` frames);
+    `run_model_on_longvos_set` and `run_model_on_ovis_set` (`both_neg_C`).
+    Kernel counts are set to 0 before each run and read after it. Each run
+    logs its wall ms per frame (reading frames, tracking, metrics, files)
+    and the runner's own ms per frame of the generator alone, per video,
+    on the host clock."""
+    import tempfile
+
+    from vosesam_tpu_torch.eval import codec, synthetic
+    from vosesam_tpu_torch.eval.datasets import DavisDataset, LongVideoDataset
+    from vosesam_tpu_torch.eval.ovis import OvisDataset, run_model_on_ovis_set
+    from vosesam_tpu_torch.eval.runner import (
+        run_model_on_davis_set,
+        run_model_on_longdata_set,
+        run_model_on_longvos_set,
+    )
+    from vosesam_tpu_torch.run_davis_test import CONFIGS, make_model
+
+    h, w = hw
+    here = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vosesam_eval_") as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.time()
+            written = synthetic.write_tree("data", h, w, seed=7, davis_frames=n_frames,
+                                           long_frames=long_frames, long_every=long_every,
+                                           lvos_frames=lvos_frames, ovis_frames=ovis_frames)
+            out["tree_s"] = time.time() - t0
+            args = argparse.Namespace(sam_model_type="vit_h", hq=True, xmem_checkpoint=None,
+                                      sam_checkpoint=None, device="cuda")
+            t0 = time.time()
+            models = {name: make_model(args, CONFIGS[name]) for name in ("baseline", "both_neg_C")}
+            torch.cuda.synchronize()
+            out["init_s"] = time.time() - t0
+            davis = DavisDataset("data/DAVIS", "2017/val.txt")
+            videos = list(davis.videos)
+            check(videos == ["bear", "bike-packing"], f"eval: DAVIS videos {videos}")
+            frames0 = davis.load_frames("bear", sorted(os.listdir(
+                "data/DAVIS/JPEGImages/480p/bear"))[:3])
+            check(frames0[0].shape == (h, w, 3), f"eval: frame {frames0[0].shape}")
+            for ta in models.values():                  # first-call costs, not counted
+                ta.generator(frames0, written["DAVIS/bear"][0])
+                ta.xmem.clear_memory()
+            models["both_neg_C"].generator_chunked(frames0, written["DAVIS/bear"][0], chunk=8)
+            models["both_neg_C"].xmem.clear_memory()
+            kept = {}
+            for name, ta in models.items():
+                kept[name] = []
+                _keep_masks(ta, kept[name])
+            runs = {}
+            totals = {}
+
+            def run(label, fn, n_frames_run):
+                torch.cuda.synchronize()
+                _reset_all()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                counts = _read_all()
+                check(counts["plain"] == 0, f"eval {label}: {counts['plain']} plain calls")
+                check(counts["fused_memory_read_shared"] > 0, f"eval {label}: B1 never launched")
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+                runs[label] = dict(frames=n_frames_run, wall_s=wall,
+                                   ms_per_frame=wall * 1e3 / n_frames_run, launches=counts)
+                log(f"[eval] {label}: {json.dumps(runs[label])}")
+
+            def generator_ms(label, per_video):
+                """The runner's own timing: the generator alone per video
+                (ms_per_frame above adds frame reading, metrics, files)."""
+                runs[label]["generator_ms_per_frame"] = per_video
+                log(f"[eval] {label}: generator ms per frame {json.dumps(per_video)}")
+
+            davis_frames = 2 * n_frames
+            for label, name, chunk in (("davis_baseline", "baseline", None),
+                                       ("davis_both_neg_C", "both_neg_C", None),
+                                       ("davis_both_neg_C_chunk8", "both_neg_C", 8)):
+                run(label, lambda: run_model_on_davis_set(
+                    label, models[name], davis, save_masks=True, chunk=chunk), davis_frames)
+                generator_ms(label, _check_run_csvs(os.path.join("result", label), videos))
+                got = kept[name][-2:]
+                for video, masks in zip(videos, got):
+                    check(len(masks) == n_frames, f"eval {label} {video}: {len(masks)} masks")
+                    _check_saved(os.path.join("result", label), video,
+                                 sorted(os.listdir(f"data/DAVIS/JPEGImages/480p/{video}")), masks)
+            check(runs["davis_both_neg_C"]["launches"]["flash_attention_relpos"] > 0
+                  and runs["davis_both_neg_C_chunk8"]["launches"]["flash_attention_relpos"] > 0,
+                  "eval: B3 never launched in the refined DAVIS runs")
+            seq, chk = kept["both_neg_C"][0:2], kept["both_neg_C"][2:4]
+            agree = min(float((a == b).mean()) for sv, cv in zip(seq, chk)
+                        for a, b in zip(sv, cv))
+            check(agree >= 0.999, f"eval: chunk 8 masks agree with per-frame masks on {agree}")
+            out["chunked_vs_sequential_min_agreement"] = agree
+
+            longd = LongVideoDataset("data/LongDataset")
+            run("longdataset_baseline", lambda: run_model_on_longdata_set(
+                "longdataset_baseline", models["baseline"], longd, save_masks=True), long_frames)
+            generator_ms("longdataset_baseline",
+                         _check_run_csvs("result/longdataset_baseline", ["clip"]))
+            info = longd.video_info("clip")
+            check(info["test_ids"] == list(range(0, long_frames, long_every)),
+                  f"eval: LongDataset test ids {info['test_ids']}")
+            _check_saved("result/longdataset_baseline", "clip",
+                         [info["frames"][i] for i in info["test_ids"]],
+                         [kept["baseline"][-1][i] for i in info["test_ids"]])
+
+            lvos = LongVideoDataset("data/LVOS", "test.txt")
+            run("lvos_both_neg_C", lambda: run_model_on_longvos_set(
+                "lvos_both_neg_C", models["both_neg_C"], lvos), lvos_frames)
+            _check_saved("result/lvos_both_neg_C", "clip", lvos.video_info("clip")["frames"],
+                         kept["both_neg_C"][-1])
+
+            ovis = OvisDataset("data/OVIS/train_images", "data/OVIS/annotations.json")
+            run("ovis_both_neg_C", lambda: run_model_on_ovis_set(
+                "ovis_both_neg_C", models["both_neg_C"], ovis, save_masks=True), ovis_frames)
+            generator_ms("ovis_both_neg_C", _check_run_csvs("result/ovis_both_neg_C", ["ovis-clip"]))
+            _check_saved("result/ovis_both_neg_C", "ovis-clip",
+                         [os.path.basename(f) for f in ovis.videos[0]["file_names"]],
+                         kept["both_neg_C"][-1])
+
+            header, rows = _read_csv("result/all_tests.csv")
+            check(header == LEDGER_COLUMNS, f"eval: all_tests.csv columns {header}")
+            check([r["run"] for r in rows] == ["davis_baseline", "davis_both_neg_C",
+                                               "davis_both_neg_C_chunk8",
+                                               "longdataset_baseline", "ovis_both_neg_C"],
+                  f"eval: all_tests.csv runs {[r['run'] for r in rows]}")
+            for r in rows:
+                check(all(np.isfinite(float(r[k])) for k in ("JF_mean", "J_mean", "F_mean", "AP")),
+                      f"eval: all_tests.csv row {r}")
+            out["ledger"] = rows
+
+            # JPEG frames, where this installation can encode them (no check
+            # depends on it)
+            if codec.jpeg_encoder_available():
+                synthetic.write_tree("jpg", h, w, seed=8, fmt="jpg", davis_frames=4,
+                                     long_frames=2, long_every=1, lvos_frames=1, ovis_frames=1)
+                jd = DavisDataset("jpg/DAVIS", "2016/val.txt", single_object=True)
+                t = time.perf_counter()
+                rows = run_model_on_davis_set("davis_jpeg", models["baseline"], jd)
+                out["jpeg_video"] = dict(rows=rows, wall_s=time.perf_counter() - t,
+                                         native_loader=codec._NATIVE.lib() is not None)
+                log(f"[eval] one JPEG video: {json.dumps(out['jpeg_video'], default=str)}")
+            else:
+                out["jpeg_video"] = "not run: no JPEG encoder (Pillow) here"
+                log(f"[eval] {out['jpeg_video']}")
+        finally:
+            os.chdir(here)
+    del models
+    torch.cuda.empty_cache()
+    check(totals["fused_memory_read_shared"] > 0 and totals["flash_attention_relpos"] > 0,
+          f"eval: launches {totals}")
+    out.update(runs=runs, launches=totals)
+    return out
 
 
 # --------------------------------------------------- the inpaint path (B6)
@@ -1862,16 +2281,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         counts, record["e2e"] = phase_end_to_end(torch)
         record["rollout_fp32"] = phase_kernel_vs_plain_rollout(torch)
+        record["c24"] = phase_c24(torch)
         record["main_path"], record["sam_init_s"] = phase_main_path(torch)
         record["main_fp32"] = phase_main_kernel_vs_plain(torch)
         record["interactive"] = phase_interactive(torch)
         record["inpaint"] = phase_inpaint(torch)
+        torch.cuda.empty_cache()
+        record["eval"] = phase_eval(torch)
         # launches: the sum over the main-path runs (phase 3, each of phase
-        # 5's runs and phase 7), each counted from 0 right before the run
+        # 5's runs, phase 7 and phase 9's runs), each counted from 0 right
+        # before the run
         for kr in kernels:
             kr["launches"] = counts.get(kr["name"], 0) + sum(
                 r["launches"][kr["name"]] for r in record["main_path"].values()
-            ) + record["interactive"]["launches"][kr["name"]]
+            ) + record["interactive"]["launches"][kr["name"]] + record["eval"]["launches"].get(
+                kr["name"], 0)
             check(kr["launches"] > 0, f"{kr['name']} never launched on the main path")
         # B6: the sum over phase 8's inpaint runs, each counted from 0
         b6["launches"] = record["inpaint"]["b6_launches"]

@@ -103,3 +103,19 @@ def test_device_ms_survives_lost_kernel_records(monkeypatch):
                             lambda records=records, **kw: _FakeProfile(records, **kw))
         got = ab.device_ms(lambda: None, calls=20, warmup=0)
         assert abs(got - want) < 1e-9, (records, got, want)
+
+
+def test_device_ms_takes_a_session_without_records_again(monkeypatch):
+    """A session that kept no kernel record at all is profiled again; only
+    PROFILE_ATTEMPTS empty sessions in a row raise."""
+    import pytest
+    import torch.profiler
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    sessions = iter([(), ((20, 20 * 50.0),)])
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda **kw: _FakeProfile(next(sessions), **kw))
+    assert abs(ab.device_ms(lambda: None, calls=20, warmup=0) - 0.05) < 1e-9
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: _FakeProfile((), **kw))
+    with pytest.raises(RuntimeError, match=f"{ab.PROFILE_ATTEMPTS} sessions"):
+        ab.device_ms(lambda: None, calls=20, warmup=0)

@@ -15,12 +15,14 @@ gather; `main()` asks the same of this card: it prints the multiply-add rate
 the hand-written kernel `csrc/binscan_probe.cu` reaches, the scan's
 projected time for one alignment call at a window of 34 x 34 bins, and the
 measured time of the gather kernel (B6, `deform_patches_bounded`) for the
-same call.
+same call, all by device time.
 
     python -m vosesam_tpu_torch.ops.kernels.binscan_probe [P] [BINS]
 
 `binscan_probe_plain` is the same function in plain PyTorch; the wrapper
-takes it only for tensors on the CPU. The kernel fuses each multiply-add and
+takes it only for tensors on the CPU. `occupancy` reports what the card
+gives the kernel's instance at a shape (registers, shared memory, blocks
+per SM, rows per block, shifts per staged window). The kernel fuses each multiply-add and
 the plain version rounds the product first: they agree within 1e-5 on
 unit-variance inputs (at most two non-zero weights per tap).
 """
@@ -39,6 +41,7 @@ from vosesam_tpu_torch.ops.kernels._autograd import refuse_grad
 COUNTS: Dict[str, int] = {"binscan_probe": 0, "plain": 0}
 
 MAX_TAPS = 9
+MAX_GROUPS = 256      # a block holds a whole row: one thread per group
 GROUP_CHANNELS = (1, 2, 4, 8, 16)
 
 # the TPU probe's shapes
@@ -105,8 +108,32 @@ def _check(x, y0, wy, bins, groups, fn: str = "binscan_probe") -> None:
     if groups < 1 or cin % groups or kg % groups or not 1 <= kg // groups <= MAX_TAPS:
         raise ValueError(f"{fn}: {groups} groups do not fit Cin = {cin} and {kg} field lanes "
                          f"(at most {MAX_TAPS} taps)")
+    if groups > MAX_GROUPS:
+        raise ValueError(f"{fn}: {groups} groups, at most {MAX_GROUPS}")
     if cin // groups not in GROUP_CHANNELS:
         raise ValueError(f"{fn}: {cin // groups} channels per group not in {GROUP_CHANNELS}")
+
+
+OCCUPANCY_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                  "blocks_per_sm", "threads_per_block", "local_bytes", "rows_per_block",
+                  "shifts_per_window")
+
+
+def occupancy(p_tile: int = P_TILE, groups: int = GROUPS, cg: int = CG,
+              bins: int = BINS) -> Dict[str, int]:
+    """Registers, shared memory and resident blocks per SM of the instance a
+    launch at (P, G, cg, bins) selects, as the card reports them, with the
+    rows per block and shifts per staged window it plans."""
+    fn = _lib().vosesam_binscan_occupancy
+    if fn.argtypes is None:
+        i = ctypes.c_int
+        fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
+    info = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    rc = fn(p_tile, groups, cg, bins, info)
+    if rc != 0:
+        raise RuntimeError(f"binscan_probe occupancy query failed: CUDA error {rc}")
+    return dict(zip(OCCUPANCY_KEYS, info))
 
 
 def binscan_probe(
@@ -167,14 +194,18 @@ def _event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def run_probe(p_tile: int = P_TILE, bins: int = BINS, seed: int = 0) -> Dict[str, float]:
     """Time the scan kernel at the probe's shapes and the gather kernel at
-    one alignment call's; needs the card. Returns the numbers `main` prints."""
+    one alignment call's, by device time (torch.profiler; CUDA events over
+    back-to-back calls read the host's issue of this short a call beside
+    it); needs the card. Returns the numbers `main` prints."""
+    from vosesam_tpu_torch.ops.kernels.ab import device_ms
     from vosesam_tpu_torch.ops.kernels.deform_align import deform_patches_bounded
 
     if not torch.cuda.is_available():
         raise RuntimeError("the bin-scan probe measures the card: CUDA is not available")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x, y0, wy = probe_inputs(gen, p_tile, bins)
-    ms = _event_ms(lambda: binscan_probe(x, y0, wy, bins))
+    ms = device_ms(lambda: binscan_probe(x, y0, wy, bins))
+    event_ms = _event_ms(lambda: binscan_probe(x, y0, wy, bins))
     fma = N_TILES * p_tile * bins * GROUPS * CG * N_TAPS
     sel = N_TILES * p_tile * bins * GROUPS * N_TAPS * 4
     # one alignment call: ALIGN_WINDOW^2 bins over ALIGN_HW pixels
@@ -182,8 +213,8 @@ def run_probe(p_tile: int = P_TILE, bins: int = BINS, seed: int = 0) -> Dict[str
     feat = torch.randn((1, 60, 108, GROUPS * CG), generator=gen, device="cuda")
     off = 4.0 * torch.randn((1, 60, 108, 2 * GROUPS * N_TAPS), generator=gen, device="cuda")
     msk = torch.rand((1, 60, 108, GROUPS * N_TAPS), generator=gen, device="cuda")
-    gather_ms = _event_ms(lambda: deform_patches_bounded(feat, off, msk))
-    return dict(p_tile=p_tile, bins=bins, ms=ms, gfma_per_s=fma / ms / 1e6,
+    gather_ms = device_ms(lambda: deform_patches_bounded(feat, off, msk))
+    return dict(p_tile=p_tile, bins=bins, ms=ms, event_ms=event_ms, gfma_per_s=fma / ms / 1e6,
                 gsel_per_s=sel / ms / 1e6, projected_align_ms=ms * scale,
                 gather_align_ms=gather_ms)
 
@@ -192,7 +223,8 @@ def report(r: Dict[str, float]) -> list:
     """The lines `main` prints for one `run_probe` result."""
     return [
         f"bin-scan tile: P={r['p_tile']} bins={r['bins']} G*K sel + (P,{GROUPS * CG}) fma",
-        f"  {r['ms']:.4f} ms/iter -> {r['gfma_per_s']:.1f} G fma/s "
+        f"  {r['ms']:.4f} ms/iter by device time (CUDA events over back-to-back calls "
+        f"{r['event_ms']:.4f}) -> {r['gfma_per_s']:.1f} G fma/s "
         f"(+{r['gsel_per_s']:.1f} G sel-ops/s)",
         f"  projected align-call bin-scan time at w={ALIGN_WINDOW}: "
         f"{r['projected_align_ms']:.3f} ms (vs {r['gather_align_ms']:.4f} ms for the "

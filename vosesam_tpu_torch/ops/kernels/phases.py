@@ -1,14 +1,14 @@
 """Where the time of the memory-read (B1 / B2), global-attention (B3),
-window-attention (B4) and deformable-sampling (B6) kernels goes, block by
-block, on the card:
+window-attention (B4), deformable-sampling (B6) and bin-scan (B7) kernels
+goes, block by block, on the card:
 
     python -m vosesam_tpu_torch.ops.kernels.phases
 
 Builds `csrc/memory_read.cu`, `csrc/flash_attention.cu`,
-`csrc/window_attention.cu` and `csrc/deform_align.cu` once more with
-`-DVOSESAM_PROFILE` (thread 0 of every block stamps the global timer at the
-ends of its phases), runs them at the shapes of `chip_smoke.py`'s phases 2,
-2b, 2c and 2d, and prints the median over blocks of each phase in ns, the
+`csrc/window_attention.cu`, `csrc/deform_align.cu` and
+`csrc/binscan_probe.cu` once more with `-DVOSESAM_PROFILE` (thread 0 of
+every block stamps the global timer at the ends of its phases), runs them at
+the shapes of `chip_smoke.py`'s phases 2, 2b, 2c, 2d and 2e, and prints the median over blocks of each phase in ns, the
 span from the first block's start to the last block's end, and the call's
 device time (torch.profiler) beside it. The product builds carry no stamps.
 """
@@ -235,6 +235,41 @@ def deform_phases(gen: torch.Generator) -> Dict[str, dict]:
     return out
 
 
+def binscan_phases(gen: torch.Generator) -> Dict[str, dict]:
+    """B7 at the probe's shape: x (4, 640, 256), fields (4, 512, 144), 16
+    groups of 16 channels, 9 taps, 128 bins, fp32."""
+    from vosesam_tpu_torch.ops.kernels import binscan_probe as bp
+
+    lib = _profile_build("binscan_probe")
+    saved = _swap_in("binscan_probe", lib)
+    x, y0, wy = bp.probe_inputs(gen)
+    occ = bp.occupancy()
+    try:
+        fn = lambda: bp.binscan_probe(x, y0, wy, bp.BINS)  # noqa: E731
+        device = device_ms(fn, calls=10)
+        fn()
+        torch.cuda.synchronize()
+        nb = bp.N_TILES * -(-bp.P_TILE // occ["rows_per_block"])
+        rows = _stamps(lib.vosesam_binscan_profile, nb, 6)
+        start = min(x[0] for x in rows)
+        per_sm: Dict[int, int] = {}
+        for x_ in rows:
+            per_sm[x_[5]] = per_sm.get(x_[5], 0) + 1
+        out = dict(
+            blocks=nb, occupancy=occ, device_ms=device,
+            span_ns=max(x[3] for x in rows) - start,
+            block_ns=_med(rows, lambda x: x[3] - x[0]),
+            first_window_staging_ns=_med(rows, lambda x: x[1] - x[0]),
+            scan_ns=_med(rows, lambda x: x[2] - x[1]),
+            later_staging_wait_ns=_med(rows, lambda x: x[4]),
+            store_ns=_med(rows, lambda x: x[3] - x[2]),
+            last_start_ns=max(x[0] for x in rows) - start,
+            sms_used=len(per_sm), most_blocks_on_one_sm=max(per_sm.values()))
+    finally:
+        _restore("binscan_probe", saved)
+    return {"probe": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: the phases are measured on the card")
@@ -247,7 +282,8 @@ def main() -> int:
     print(json.dumps({"memory_read": memory_read_phases(gen),
                       "flash_attention": flash_phases(gen),
                       "window_attention": window_phases(gen),
-                      "deform_align": deform_phases(gen)}))
+                      "deform_align": deform_phases(gen),
+                      "binscan_probe": binscan_phases(gen)}))
     return 0
 
 
