@@ -13,10 +13,11 @@ Phases (each one that fails exits non-zero):
      validity, B2 per-object validity) at the DAVIS-480p production shapes
      (Q 1620, M 17 200, Ck 64, Cv 512, O 2, k 30, bf16 keys/values) and at
      the edge cases, held against the plain PyTorch version; two calls on
-     the same inputs give bit-equal usage and readout; CUDA-event timings
-     (median of 25 after warm-up) and device time beside the bound (and the
-     bound at the tensor-core rate of the similarity the kernels compute);
-     each kernel instance's registers, shared memory and blocks per SM;
+     the same inputs give bit-equal usage and readout; the kernels' device
+     time on `get_similarity`'s matrix beside their byte bound, the plain
+     chain on the same matrix, `get_similarity`'s own device time, and the
+     whole wrapper's; each kernel's registers, shared memory and blocks per
+     SM;
   2b. kernel vs plain for B3 (global attention with factorised rel-pos
      bias): vit_h's 16 heads, D 80, on the square (64x64), rect (36x64) and
      fixed (28x56) grids, B 1 and 8, bf16 and fp32, on the strided q / k / v
@@ -60,9 +61,9 @@ Phases (each one that fails exits non-zero):
   4. XMem kernel vs plain end to end: 16 frames in fp32 twice, once through
      the kernels and once with `MemoryConfig(fused_read=False)`;
   4b. C24: the share of query rows whose top-k slots, as the memory-read
-     kernels admit them from their own bf16 similarity, differ from
-     `topk_softmax` on `get_similarity`'s matrix, at phase 2's shapes and
-     over every read of phase 3's rollout (logged against 0.1%);
+     kernels admit them from `get_similarity`'s matrix, differ from
+     `topk_softmax` on the same matrix, at phase 2's shapes and over every
+     read of phase 3's rollout: fails above 0.1%;
   5. the main path: XMem + SAM-HQ vit_h refinement (`both_neg`, point
      algorithm C, the 0.94 gate, rect encode, 2 objects, bf16): `generator`
      over 12 frames, `generator_chunked(chunk=8, paint=True)` over 25, and
@@ -104,9 +105,24 @@ Phases (each one that fails exits non-zero):
      J / F / AP, saved palette PNGs equal to the generator's masks, chunked
      masks >= 99.9% equal to per-frame masks, B1 and B3 launched and no
      plain call; ms per frame per run on the host clock.
+  10. serving: one model at the main path's full width (SAM-HQ vit_h, the
+     phase-8 inpainter) behind `serve(model, port=0)`: /health, /segment
+     (480x854 PNG, two clicks), /track over 12 frames with chunk 8 and 0,
+     /inpaint of 10 frames at ratio 0.5, two concurrent /track requests
+     (exactly one 503 with Retry-After), an unknown route (404); every
+     response bit-equal to the same facade call; B1, B3 and B6 launched,
+     no plain call; then one `AppSession` flow (template, two clicks,
+     add_mask, track, inpaint): the frames change inside the dilated masks
+     only; ms per request.
+  11. the XMem trainer: the full-width recipe (XMem-s012, B 4, T 8, crop
+     384, grad_accum 2, remat, fp32) on a synthetic 480x854 tree through
+     `ClipSampler` for 5 steps with finite losses, ms per step and peak
+     memory; at toy dims with TF32 off, one step on the card against the
+     same step on the CPU and grad_accum 2 against the full batch; a card
+     checkpoint reloads.
 Kernel launch counts are set to 0 right before each main-path run (phases
-3, 5, 7, 8 and 9) and read right after; the `kernels` line sums them (B7, a
-probe on no product path, counts its own run in phase 2e).
+3, 5, 7, 8, 9 and 10) and read right after; the `kernels` line sums them
+(B7, a probe on no product path, counts its own run in phase 2e).
 The last two lines are the `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -319,53 +335,59 @@ def phase_kernels(torch):
         out2, use2 = kern()
         check(torch.equal(use, use2) and torch.equal(out, out2),
               f"{name}: two calls on the same inputs differ")
+        shared = name == "fused_memory_read_shared"
+        scale = float(o) if shared else 1.0
+        # the kernels on get_similarity's matrix (the JAX kernel's input),
+        # and the plain chain on the same matrix: topk_softmax + readout
+        sim, valid_u8 = mr.kernel_inputs(case["mk"], case["ms"], case["qk"], case["qe"],
+                                          valid_rows)
+        rows = valid_rows & (torch.arange(m, device="cuda") < live)
+        kernel_fn = lambda: mr._launch(sim, valid_u8, case["mv"], k, live, shared,  # noqa: E731
+                                       scale, True)
+        plain_fn = lambda: _plain_on_sim(torch, sim, rows, case["mv"], k, shared)  # noqa: E731
+        k_out, k_use = kernel_fn()
+        p_out, p_use = plain_fn()
+        _compare_read(torch, f"{name} on the matrix", k_out, k_use, p_out, p_use * scale,
+                      BF16_TOL)
+        device = device_ms(torch, kernel_fn, calls=10)
+        plain_device = device_ms(torch, plain_fn, calls=5)
+        sim_device = device_ms(torch, lambda: get_similarity(
+            case["mk"], case["ms"], case["qk"], case["qe"]), calls=10)
+        wrapper_device = device_ms(torch, kern, calls=10)
         ms = time_ms(torch, kern)
         plain_ms = time_ms(torch, plain)
-        # the launches alone, without the wrapper's checks: with the
-        # similarity fused there is nothing else to take out
-        shared = name == "fused_memory_read_shared"
-        check(mr._tensor_cores(case["mk"], case["qk"], case["qe"]),
-              f"{name}: bf16 keys did not take the tensor cores")
-        kernel_only_ms = time_ms(torch, lambda: mr._launch(
-            case["mk"], case["ms"], case["qk"], case["qe"], valid_rows, case["mv"], k, live,
-            shared, float(o) if shared else 1.0, True))
-        device = device_ms(torch, kern, calls=10)
-        # bound: each input read once and each output written once, over
-        # the slots this run's data needs (< need), and the operations it
-        # does: the fp32 similarity (4 Q need Ck) plus the readout of the
-        # admitted slots (2 Cv per admitted (row, object, slot))
-        sim = get_similarity(case["mk"], case["ms"], case["qk"], case["qe"])
-        aff_admitted = _admitted(torch, sim, valid_rows, need, k)
-        del sim
-        n_admitted = aff_admitted * (o if shared else 1)
-        bytes_moved = (need * ck * 2 + need * 4 + 2 * q * ck * 2
-                       + o * need * cv * 2 + valid_rows.shape[0] * need
+        # bound of the kernels: each input read once and each output
+        # written once, over the slots this run's data needs: the matrix's
+        # columns < need, their validity, the value rows of the slots some
+        # row admits, the readout and the usage; operations: the readout of
+        # the admitted slots (2 Cv per admitted (row, object, slot))
+        adm = _admitted_sets(torch, sim, rows, k)
+        n_admitted = int(adm.sum().item()) * (o if shared else 1)
+        value_rows = int(adm.any(1).sum().item()) * (o if shared else 1)
+        bytes_moved = (q * need * 4 + valid_rows.shape[0] * need + value_rows * cv * 2
                        + o * q * cv * 4 + m * 4)
-        flops = 4 * q * need * ck + 2 * n_admitted * cv
+        del adm, sim, valid_u8
+        flops = 2 * n_admitted * cv
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
-        # the same work as this design does it: the four split products
-        # (2 Q need 4 Ck) at the bf16 tensor-core rate, the readout in fp32
-        t_tc = (2 * q * need * 4 * ck / BF16_FLOP_PER_S
-                + 2 * n_admitted * cv / FP32_FLOP_PER_S) * 1e3
         results.append(dict(
             name=name, route="cuda", source="vosesam_tpu_torch/csrc/memory_read.cu",
-            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            replaces=replaces, max_abs_err=err, ms=device, plain_ms=plain_device,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes > t_ops else "operations",
-            library_ms=None, kernel_only_ms=kernel_only_ms, device_ms=device,
-            bound_tensor_core_ms=max(t_bytes, t_tc), usage_max_abs_err=uerr,
-            usage_bit_equal_across_calls=True,
-            bound_slots=need, admitted_per_row=aff_admitted / (q * valid_rows.shape[0])))
+            library_ms=None, get_similarity_ms=sim_device, wrapper_device_ms=wrapper_device,
+            wrapper_event_ms=ms, plain_wrapper_event_ms=plain_ms, usage_max_abs_err=uerr,
+            usage_bit_equal_across_calls=True, bound_slots=need,
+            admitted_per_row=n_admitted / (o if shared else 1) / (q * valid_rows.shape[0]),
+            value_rows_read=value_rows))
         log(f"[kernels] {name}: err {err:.3g} usage err {uerr:.3g} (two calls bit-equal) | "
-            f"{ms:.3f} ms (kernels alone {kernel_only_ms:.3f}, device {device:.3f}) vs plain "
-            f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.3f} ms ({results[-1]['bound_by']}),"
-            f" at the tensor-core rate {max(t_bytes, t_tc):.4f} ms")
+            f"kernels on the matrix {device:.4f} ms device vs the plain chain on it "
+            f"{plain_device:.4f}, bound {max(t_bytes, t_ops):.4f} ms ({results[-1]['bound_by']}); "
+            f"get_similarity {sim_device:.4f} ms device; the wrapper {wrapper_device:.4f} ms "
+            f"device, {ms:.3f} ms one call by events vs the plain wrapper {plain_ms:.3f}")
     OCCUPANCY["memory_read"] = {
-        **{f"{kern} (bf16 keys, tensor cores; bf16 values)": mr.occupancy(kern)
-           for kern in ("select", "apply", "select_2", "apply_2")},
-        **{f"{kern} (fp32 keys and values)": mr.occupancy(kern, False, ck, torch.float32)
-           for kern in ("select", "apply")},
-        "finish": mr.occupancy("finish"), "usage": mr.occupancy("usage")}
+        **{f"{kern} (bf16 values)": mr.occupancy(kern) for kern in mr.KERNELS},
+        **{f"{kern} (fp32 values)": mr.occupancy(kern, torch.float32)
+           for kern in ("select", "apply", "select_2", "apply_2", "finish")}}
     for inst, occ in OCCUPANCY["memory_read"].items():
         log(f"[kernels] occupancy {inst}: {json.dumps(occ)}")
 
@@ -373,19 +395,35 @@ def phase_kernels(torch):
     return results
 
 
-def _admitted(torch, sim, valid_rows, live: int, k: int) -> int:
-    """Admitted (query, slot) pairs summed over the validity rows: valid and
-    at least the k-th largest valid similarity of the query."""
+def _admitted_sets(torch, sim, valid_rows, k: int):
+    """(R, Q, M) bool: the slots `topk_softmax` admits for each validity row:
+    valid and at least the k-th largest valid similarity of the query
+    (duplicates counted)."""
     from vosesam_tpu_torch.ops.memory_attention import NEG_INF
 
-    s = sim[:, :live]
-    total = 0
+    out = []
     for vr in valid_rows:
-        v = vr[:live][None]
-        masked = torch.where(v, s, torch.full((), NEG_INF, device=s.device))
-        th = torch.topk(masked, min(k, live), dim=-1).values[:, -1:]
-        total += int(((masked >= th) & v).sum().item())
-    return total
+        masked = torch.where(vr[None], sim, torch.full((), NEG_INF, device=sim.device))
+        kth = torch.topk(masked, min(k, sim.shape[-1]), dim=-1).values[:, -1:]
+        out.append((masked >= kth) & vr[None])
+    return torch.stack(out)
+
+
+def _plain_on_sim(torch, sim, valid_rows, mv, k: int, shared: bool):
+    """The plain chain on a given similarity: `topk_softmax` against each
+    validity row, then the readout (every object against the one row in
+    shared mode, object r against row r otherwise). Returns (out, usage)."""
+    from vosesam_tpu_torch.ops.memory_attention import readout, topk_softmax
+
+    if shared:
+        aff, use = topk_softmax(sim, valid_rows[0], k, return_usage=True)
+        return torch.stack([readout(aff, v) for v in mv]), use
+    outs, usage = [], 0
+    for r, vr in enumerate(valid_rows):
+        aff, use = topk_softmax(sim, vr, k, return_usage=True)
+        outs.append(readout(aff, mv[r]))
+        usage = usage + use
+    return torch.stack(outs), usage
 
 
 def _edge_cases(torch, mr, gen):
@@ -567,7 +605,7 @@ def phase_kernel_vs_plain_rollout(torch, n_frames: int = 16, add_at: int = 8):
     return dict(summary, per_frame=per_frame)
 
 
-# ------------------------- C24: the fused bf16 similarity near the k-th value
+# ------------------- C24: the kernels select from get_similarity's matrix
 
 C24_LIMIT = 1e-3   # share of query rows whose admitted slots may differ (ROADMAP C24)
 
@@ -602,30 +640,9 @@ def _kernel_admitted(torch, mr, call, r: int, q: int, m: int):
     return adm, overflow
 
 
-def _plain_admitted(torch, sim, valid_rows, k: int, noise=None):
-    """`topk_softmax`'s admitted slots of each validity row: valid and at
-    least the k-th largest valid similarity (duplicates counted); and, with
-    `noise` (Q,), the rows whose k-th and (k+1)-th values lie within twice
-    `noise` of each other, where two sums of the same terms in another order
-    may swap them."""
-    from vosesam_tpu_torch.ops.memory_attention import NEG_INF
-
-    out, near = [], []
-    for vr in valid_rows:
-        masked = torch.where(vr[None], sim, torch.full((), NEG_INF, device=sim.device))
-        top = torch.topk(masked, min(k + 1, sim.shape[-1]), dim=-1).values
-        kth = top[:, min(k, sim.shape[-1]) - 1:min(k, sim.shape[-1])]
-        out.append((masked >= kth) & vr[None])
-        if noise is not None:
-            near.append((top[:, -1] - kth[:, 0]).abs() <= 2 * noise)
-    return torch.stack(out), (torch.stack(near) if near else None)
-
-
 def _c24_read(torch, mr, shared: bool, mk, ms, qk, qe, mv, valid, k, live_end=None):
     """One read's counts of query rows: (compared, differing kernel vs
-    plain, whose kernel set is incomplete, differing torch form of the
-    fused similarity vs plain, all, differing within the summation-order
-    noise)."""
+    plain, whose kernel set is incomplete)."""
     from vosesam_tpu_torch.ops.memory_attention import get_similarity
 
     m = mk.shape[0]
@@ -641,28 +658,19 @@ def _c24_read(torch, mr, shared: bool, mk, ms, qk, qe, mv, valid, k, live_end=No
         call = lambda: mr.fused_memory_read(  # noqa: E731
             mk, ms, qk, qe, mv, valid, k, return_usage=True)
     adm, overflow = _kernel_admitted(torch, mr, call, valid_rows.shape[0], q, m)
-    sim = get_similarity(mk, ms, qk, qe)
-    fused_sim = mr.similarity_from_operands(mr.similarity_operands(mk, ms, qk, qe))
-    # the two fp32 sums' disagreement per row: the scale of summation-order noise
-    noise = (fused_sim - sim).abs().amax(dim=-1)
-    plain, near = _plain_admitted(torch, sim, valid_rows, k, noise)
-    fused, _ = _plain_admitted(torch, fused_sim, valid_rows, k)
-    del sim, fused_sim
+    plain = _admitted_sets(torch, get_similarity(mk, ms, qk, qe), valid_rows, k)
     differ = (adm != plain).any(-1) & ~overflow
-    torch_form = (fused != plain).any(-1)
-    return (int((~overflow).sum()), int(differ.sum()), int(overflow.sum()),
-            int(torch_form.sum()), plain.numel() // m, int((differ & near).sum()))
+    return int((~overflow).sum()), int(differ.sum()), int(overflow.sum())
 
 
 def phase_c24(torch, n_frames: int = 64, add_at: int = 40):
-    """C24: with bf16 keys the kernels compute the similarity themselves
-    (the four split products on the tensor cores, summed in their own
-    order), where `topk_softmax` reads `get_similarity`'s matrix. Share of
-    query rows whose admitted top-k slots differ between the two: at phase
-    2's shapes (B1 and B2), and over every read of phase 3's bf16 rollout.
-    Beside it, the same share for the torch form of the fused similarity
-    (`similarity_from_operands`). Logged beside C24_LIMIT, the share
-    ROADMAP C24 allows."""
+    """C24: the memory-read kernels stream `get_similarity`'s matrix, the
+    one `topk_softmax` reads, so they admit the same top-k slots. The
+    share of query rows whose admitted slots differ, at phase 2's shapes
+    (B1 and B2) and over every read of phase 3's bf16 rollout, must stay
+    within C24_LIMIT (ROADMAP C24); by construction it is 0 (only the
+    tie collapse of C5 could break that, and continuous inputs make ties
+    measure-zero)."""
     from vosesam_tpu_torch.ops.kernels import memory_read as mr
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -679,7 +687,7 @@ def phase_c24(torch, n_frames: int = 64, add_at: int = 40):
     res = {"B1 at phase 2's shape": _c24_read(torch, mr, True, *args, shared_valid, k, live_end),
            "B2 at phase 2's shape": _c24_read(torch, mr, False, *args, per_obj_valid, k)}
 
-    rollout = [0, 0, 0, 0, 0, 0]
+    rollout = [0, 0, 0]
     reads = {"shared": 0, "per_object": 0}
     shared_fn, per_obj_fn = mr.fused_memory_read_shared, mr.fused_memory_read
 
@@ -716,24 +724,19 @@ def phase_c24(torch, n_frames: int = 64, add_at: int = 40):
     check(reads["shared"] > 0 and reads["per_object"] > 0, f"C24: reads {reads}")
     res[f"phase 3's rollout ({n_frames} frames, {reads})"] = tuple(rollout)
     out = {}
-    for name, (rows, differ, overflow, torch_form, all_rows, near) in res.items():
-        out[name] = dict(rows_compared=rows, rows_differing=differ, share=differ / max(rows, 1),
-                         rows_differing_at_a_near_tie=near, rows_incomplete=overflow,
-                         torch_form_rows_differing=torch_form,
-                         torch_form_share=torch_form / max(all_rows, 1),
-                         within_limit=differ / max(rows, 1) <= C24_LIMIT)
+    for name, (rows, differ, overflow) in res.items():
+        share = differ / max(rows, 1)
+        out[name] = dict(rows_compared=rows, rows_differing=differ, share=share,
+                         rows_incomplete=overflow, limit=C24_LIMIT)
         log(f"[C24] {name}: {differ} of {rows} query rows admit other slots than "
-            f"topk_softmax on get_similarity ({differ / max(rows, 1):.3%}, limit "
-            f"{C24_LIMIT:.1%}; {near} of them where the k-th and (k+1)-th values lie within "
-            f"twice the row's largest difference between the fused fp32 similarity and "
-            f"get_similarity's; {overflow} rows with an overflowed list not compared); torch form "
-            f"of the fused similarity: {torch_form} of {all_rows} rows "
-            f"({torch_form / max(all_rows, 1):.3%})")
-    # a measurement: the share is logged and recorded (ROADMAP C24), and the
-    # phase fails only where it could not compare the rows
+            f"topk_softmax on get_similarity ({share:.3%}, limit {C24_LIMIT:.1%}; {overflow} "
+            f"rows with an overflowed list not compared)")
     for name, r in out.items():
         check(r["rows_compared"] > 0 and r["rows_incomplete"] <= r["rows_compared"] // 100,
               f"C24: {name}: {r['rows_compared']} rows compared, {r['rows_incomplete']} not")
+        check(r["share"] <= C24_LIMIT, f"C24: {name}: {r['rows_differing']} of "
+                                       f"{r['rows_compared']} rows ({r['share']:.3%}) admit other "
+                                       f"slots than topk_softmax, above {C24_LIMIT:.1%}")
     return out
 
 
@@ -2160,6 +2163,371 @@ def phase_interactive(torch, n_clicks: int = 5):
     return summary
 
 
+# ------------------------------------------- serving: server and app (A10)
+
+def _http(base, route, payload=None, timeout=600):
+    """(status, JSON body, headers) of one request; HTTP errors included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"{base}{route}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def _serve_counts_reset():
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+
+    _reset_all()
+    da.reset_counts()
+
+
+def _serve_counts():
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+
+    counts = _read_all()
+    counts["deform_patches_bounded"] = da.COUNTS["deform_patches_bounded"]
+    counts["plain"] += da.COUNTS["plain"]
+    return counts
+
+
+def phase_serve(torch, card: str, n_frames: int = 12, n_inpaint: int = 10):
+    """Serving on the card: one model at the main path's full width
+    (XMem-s012, SAM-HQ vit_h, `both_neg` / C / the 0.94 gate, rect encode,
+    bf16) with the E2FGVI-HQ inpainter of phase 8 (random weights, offset
+    heads randomised) behind `serve(model, port=0)`: /health, /segment on a
+    480x854 PNG with two clicks, /track over `n_frames` frames with chunk 8
+    and chunk 0, /inpaint of `n_inpaint` frames at ratio 0.5 with the
+    tracked masks, two concurrent /track requests (exactly one 503 with
+    Retry-After), an unknown route (404). Kernel counts are set to 0 right
+    before the requests and read right after them. Every response decodes
+    to masks / frames bit-equal to the same facade call made directly on
+    the same model afterwards. Then one `AppSession` flow on the same
+    frames, counted the same way: template, two clicks, `add_mask`,
+    `track` (chunk 8, painted), `inpaint(last_masks)`; the inpainted frames
+    must differ from the input inside the dilated masks (the out-of-memory
+    guard did not fire) and B6 must launch. The inpainter runs at
+    PyTorch's default precision (TF32 convolutions), as in phase 8."""
+    import base64
+    import threading
+
+    from vosesam_tpu_torch.app import AppSession
+    from vosesam_tpu_torch.eval import codec
+    from vosesam_tpu_torch.eval.palette import pascal_colormap
+    from vosesam_tpu_torch.ops import morphology as morph
+    from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
+    from vosesam_tpu_torch.serve.server import serve
+
+    h, w = 480, 854
+    frames = list(moving_frames(n_frames, h, w, seed=5))
+    tmpl = seed_mask(h, w)
+    points = [[300.0, 200.0], [680.0, 100.0]]
+    labels = [1, 0]
+    png = lambda f: base64.b64encode(codec.encode_png_rgb(f)).decode()  # noqa: E731
+    pmask = lambda m: base64.b64encode(codec.encode_png_palette(  # noqa: E731
+        m, pascal_colormap())).decode()
+    unmask = lambda b: codec.decode_indices(base64.b64decode(b))  # noqa: E731
+    unframe = lambda b: codec.decode_rgb(base64.b64decode(b))  # noqa: E731
+
+    t0 = time.time()
+    ta = TrackingAnything(cfg=_main_cfg("bfloat16"), device="cuda", seed=0,
+                          e2fgvi_checkpoint="random-weights")
+    _randomise_offset_heads(torch, ta.baseinpainter.net, seed=13)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    httpd = serve(ta, port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = dict(card=card, init_s=init_s, ms={})
+    try:
+        # first-call costs, not counted: one short track and one click
+        ta.generator_chunked(frames[:9], tmpl, chunk=8)
+        ta.xmem.clear_memory()
+        ta.first_frame_click(frames[0], np.asarray(points, np.float32), np.asarray(labels))
+        ta.baseinpainter.inpaint(frames[:6], [tmpl] * 6, ratio=0.5)
+        torch.cuda.synchronize()
+
+        def timed(name, route, payload=None):
+            t = time.perf_counter()
+            res = _http(base, route, payload)
+            out["ms"][name] = (time.perf_counter() - t) * 1e3
+            while httpd.RequestHandlerClass.lock.locked():   # released after the reply
+                time.sleep(0.001)
+            return res
+
+        seg = dict(image=png(frames[0]), points=points, labels=labels)
+        track = dict(frames=[png(f) for f in frames], template_mask=pmask(tmpl))
+        _serve_counts_reset()
+        health = timed("health", "/health")
+        segment = timed("segment", "/segment", seg)
+        tracked8 = timed("track_chunk_8", "/track", dict(track, chunk=8))
+        tracked0 = timed("track_chunk_0", "/track", dict(track, chunk=0))
+        check(tracked8[0] == 200 and tracked0[0] == 200, f"serve: /track {tracked8[:2]}")
+        masks8 = [unmask(m) for m in tracked8[1]["masks"]]
+        inp = dict(frames=[png(f) for f in frames[:n_inpaint]],
+                   masks=[pmask(m) for m in masks8[:n_inpaint]], ratio=0.5)
+        inpainted = timed("inpaint", "/inpaint", inp)
+        # two concurrent /track requests: the first is held inside the
+        # model until the second has been answered
+        orig = ta.generator_chunked
+        entered, release = threading.Event(), threading.Event()
+
+        def held(*a, **k):
+            entered.set()
+            release.wait(600)
+            return orig(*a, **k)
+
+        first = {}
+        short = dict(frames=track["frames"][:3], template_mask=track["template_mask"])
+        ta.generator_chunked = held
+        th = threading.Thread(target=lambda: first.update(res=_http(base, "/track", short)))
+        try:
+            th.start()
+            check(entered.wait(600), "serve: the first /track never reached the model")
+            t = time.perf_counter()
+            busy = _http(base, "/track", short)
+            out["ms"]["busy_503"] = (time.perf_counter() - t) * 1e3
+        finally:
+            release.set()
+            th.join(600)
+            del ta.generator_chunked
+        while httpd.RequestHandlerClass.lock.locked():
+            time.sleep(0.001)
+        unknown = timed("unknown_404", "/nope", {})
+        torch.cuda.synchronize()
+        counts = _serve_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"[serve] {card}; ms per request: {json.dumps(out['ms'])}")
+    log(f"[serve] launches over the requests: {json.dumps(counts)}")
+    check(health[0] == 200 and health[1]["status"] == "ok" and health[1]["backend"] == "cuda"
+          and health[1]["device"] == torch.cuda.get_device_name(0), f"serve: /health {health[1]}")
+    check(segment[0] == 200 and segment[1]["shape"] == [h, w], f"serve: /segment {segment[:2]}")
+    check(inpainted[0] == 200 and len(inpainted[1]["frames"]) == n_inpaint,
+          f"serve: /inpaint {inpainted[0]}")
+    check(not th.is_alive() and first["res"][0] == 200, "serve: the held /track did not finish")
+    check(busy[0] == 503 and busy[1]["error"].startswith("busy")
+          and busy[2].get("Retry-After") == "1", f"serve: concurrent /track got {busy[:2]}")
+    check(unknown[0] == 404, f"serve: unknown route got {unknown[0]}")
+    for k in ("fused_memory_read_shared", "flash_attention_relpos", "deform_patches_bounded"):
+        check(counts[k] > 0, f"serve: {k} never launched over the requests")
+    check(counts["plain"] == 0, f"serve: {counts['plain']} plain calls")
+
+    # the same calls made directly on the same model: bit-equal
+    ta.samcontroler.reset_image()
+    want, _, _ = ta.first_frame_click(frames[0], np.asarray(points, np.float32),
+                                      np.asarray(labels, np.int32))
+    check(np.array_equal(unmask(segment[1]["mask"]), want.astype(np.uint8)),
+          "serve: /segment differs from first_frame_click")
+    ta.xmem.clear_memory()
+    want8, scores8 = ta.generator_chunked(frames, tmpl, chunk=8)
+    ta.xmem.clear_memory()
+    want0, _, _, scores0 = ta.generator(frames, tmpl)
+    ta.xmem.clear_memory()
+    for name, res, want, scores in (("chunk 8", tracked8, want8, scores8),
+                                    ("chunk 0", tracked0, want0, scores0)):
+        got = [unmask(m) for m in res[1]["masks"]]
+        check(len(got) == n_frames and all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"serve: /track {name} masks differ from the facade's")
+        check(res[1]["scores"] == [list(map(float, s)) for s in scores],
+              f"serve: /track {name} scores differ from the facade's")
+    want_inp = ta.baseinpainter.inpaint(frames[:n_inpaint], masks8[:n_inpaint], ratio=0.5)
+    got_inp = [unframe(f) for f in inpainted[1]["frames"]]
+    check(all(np.array_equal(a, b) for a, b in zip(got_inp, want_inp)),
+          "serve: /inpaint frames differ from baseinpainter.inpaint's")
+    log("[serve] /segment, /track (chunk 8, 0) and /inpaint bit-equal to the facade's calls")
+
+    # one AppSession flow on the same frames
+    session = AppSession(ta)
+    session.frames = list(frames)
+    _serve_counts_reset()
+    t = time.perf_counter()
+    session.select_template(0)
+    for (x, y), lbl in zip(points, labels):
+        session.click(x, y, bool(lbl))
+    check(session.add_mask() == 1, "app: add_mask")
+    masks, painted, _ = session.track()
+    check(len(masks) == n_frames and painted[0].shape == (h, w, 3), "app: track output")
+    inpainted_app = session.inpaint(session.last_masks)
+    torch.cuda.synchronize()
+    app_ms = (time.perf_counter() - t) * 1e3
+    app_counts = _serve_counts()
+    dil = morph.dilate(torch.from_numpy(np.stack([m > 0 for m in masks])).to("cuda"),
+                       ta.baseinpainter.cfg.dilate_radius).cpu().numpy()
+    got = np.stack(inpainted_app)
+    changed = float((got[dil] != np.stack(frames)[dil]).mean()) if dil.any() else 0.0
+    check(got.shape == (n_frames, h, w, 3) and dil.any() and changed > 0.5,
+          f"app: inpainted frames inside the dilated masks changed on {changed} of the values")
+    check(bool((got[~dil] == np.stack(frames)[~dil]).all()),
+          "app: inpainted frames differ outside the dilated masks")
+    check(app_counts["deform_patches_bounded"] > 0 and app_counts["plain"] == 0,
+          f"app: counts {app_counts}")
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+    out.update(launches=counts, app=dict(ms=app_ms, launches=app_counts,
+                                         masked_share=float(dil.mean()),
+                                         inside_changed=changed))
+    log(f"[serve] AppSession flow (template, 2 clicks, add_mask, track chunk 8, inpaint at "
+        f"480x854): {app_ms:.1f} ms, inside the masks {changed:.4f} of the values changed; "
+        f"launches {json.dumps(app_counts)}")
+    del ta, session
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------- the XMem trainer (A12)
+
+TRAIN_LOSS_REL = 1e-4     # card vs CPU: the batch loss
+# card vs CPU: max |g_card - g_cpu| over the global norm. cuDNN's fp32
+# convolution algorithms (TF32 off: FFT / Winograd, C20) are not the CPU's
+# direct ones; measured 2.4e-4 on an H100 (PERF.md §6)
+TRAIN_GRAD_REL = 1e-3
+TRAIN_PARAM_ATOL = 1e-5   # card vs CPU: parameters after one step (lr 1e-5) ...
+TRAIN_PARAM_SHARE = 0.999  # ... on this share of the elements
+
+
+def _toy_step(torch, dev, frames, gt, ov, grad_accum=1):
+    """One trainer step at toy dims from the same seeded weights on `dev`:
+    (gradients on the CPU, the loss, the trained state)."""
+    from vosesam_tpu_torch.config import FrameworkConfig, XMemConfig
+    from vosesam_tpu_torch.models.xmem.network import xmem_init
+    from vosesam_tpu_torch.training import trainer as T
+
+    cfg = FrameworkConfig(xmem=XMemConfig(key_dim=8, value_dim=16, hidden_dim=4,
+                                          max_objects=2), dtype="float32")
+    tcfg = T.TrainConfig(grad_accum=grad_accum)
+    state = T.init_train_state(xmem_init(cfg.xmem, seed=3, device=dev), tcfg)
+    batch = [torch.from_numpy(x).to(dev) for x in (frames, gt, ov)]
+    grads, loss, _ = T.batch_gradients(state, *batch, cfg, tcfg)
+    T.apply_adamw(state, grads, tcfg)
+    return {k: v.cpu() for k, v in grads.items()}, float(loss), state
+
+
+def _compare_steps(torch, name, a, b):
+    (ga, la, sa), (gb, lb, sb) = a, b
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gb.values())))
+    errs = {k: float((ga[k] - gb[k]).abs().max()) for k in gb}
+    worst = max(errs, key=errs.get)
+    gerr = errs[worst] / norm
+    pa, pb = sa.net.state_dict(), sb.net.state_dict()
+    keys = [k for k in pb if not k.endswith("num_batches_tracked")]
+    diffs = torch.cat([(pa[k].cpu() - pb[k].cpu()).abs().flatten() for k in keys])
+    share = float((diffs <= TRAIN_PARAM_ATOL).double().mean())
+    res = dict(loss=(la, lb), loss_rel=abs(la - lb) / abs(lb), grad_err_over_norm=gerr,
+               grad_norm=norm, worst_leaf=worst,
+               worst_leaf_err_over_its_max=errs[worst] / max(float(gb[worst].abs().max()), 1e-30),
+               param_share_within_atol=share, param_max_abs_diff=float(diffs.max()))
+    log(f"[train] {name}: {json.dumps(res)}")
+    check(res["loss_rel"] <= TRAIN_LOSS_REL, f"train: {name}: loss {la} vs {lb}")
+    check(gerr <= TRAIN_GRAD_REL, f"train: {name}: gradients differ by {gerr} of the norm")
+    check(share >= TRAIN_PARAM_SHARE, f"train: {name}: parameters within {TRAIN_PARAM_ATOL} "
+                                      f"on only {share} of the elements")
+    return res
+
+
+def phase_train(torch, card: str, n_steps: int = 5):
+    """The XMem trainer on the card. The full-width recipe on a synthetic
+    480x854 DAVIS tree through `ClipSampler`: XMem-s012 dims, 3 object
+    slots, B 4, T 8, crop 384, `grad_accum` 2, remat on, fp32 (PyTorch's
+    default precision: TF32 convolutions), `n_steps` steps with finite
+    losses; ms per step (steps after the first) and peak memory. Then, at
+    toy dims with TF32 off for matmuls and cuDNN and deterministic cuDNN
+    algorithms (ROADMAP C20): one step on the card against the same step on
+    the CPU, and `grad_accum` 2 against the full batch on the card, each
+    within the TRAIN_* tolerances; a checkpoint saved on the card reloads
+    through `load_xmem_checkpoint` and `load_checkpoint`."""
+    import tempfile
+
+    from vosesam_tpu_torch.config import FrameworkConfig, XMemConfig
+    from vosesam_tpu_torch.eval import synthetic
+    from vosesam_tpu_torch.eval.datasets import DavisDataset
+    from vosesam_tpu_torch.models.xmem.network import XMem, xmem_init
+    from vosesam_tpu_torch.training import trainer as T
+    from vosesam_tpu_torch.training.data import ClipSampler, ClipSamplerConfig
+    from vosesam_tpu_torch.utils.checkpoint import load_xmem_checkpoint
+
+    out = dict(card=card)
+    cfg = FrameworkConfig(xmem=XMemConfig(max_objects=3), dtype="float32")
+    tcfg = T.TrainConfig(grad_accum=2, remat=True)
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    with tempfile.TemporaryDirectory(prefix="vosesam_train_") as tmp:
+        t0 = time.time()
+        synthetic.write_tree(tmp, 480, 854, seed=9, davis_frames=16, long_frames=2,
+                             lvos_frames=1, ovis_frames=2)
+        out["tree_s"] = time.time() - t0
+        sampler = ClipSampler(DavisDataset(os.path.join(tmp, "DAVIS"), "2017/val.txt"),
+                              ClipSamplerConfig(seq_length=8, crop=384), 3, seed=0)
+        state = T.init_train_state(xmem_init(cfg.xmem, seed=0, device="cuda"), tcfg)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            for _ in range(n_steps):
+                frames, gt, valid = sampler.sample_batch(4)
+                t = time.perf_counter()
+                batch = (torch.from_numpy(frames).float().cuda(), torch.from_numpy(gt).cuda(),
+                         torch.from_numpy(valid).cuda())
+                state, aux = T.train_step(state, *batch, cfg, tcfg)
+                losses.append(float(aux["loss"]))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow_tf32
+        check(all(np.isfinite(losses)), f"train: losses {losses}")
+        check(frames.shape == (4, 8, 384, 384, 3), f"train: batch {frames.shape}")
+        out.update(steps=n_steps, losses=losses, ms_per_step=statistics.median(times[1:]),
+                   step_ms=times, peak_mem_gib=peak)
+        log(f"[train] {card}; full-width recipe (XMem-s012, B 4, T 8, 384x384, grad_accum 2, "
+            f"remat, fp32): {statistics.median(times[1:]):.1f} ms per step (steps 2-{n_steps}, "
+            f"median; {[round(x, 1) for x in times]}), peak {peak:.2f} GiB, losses {losses}")
+
+        # a checkpoint saved on the card reloads
+        path = os.path.join(tmp, "xmem_train.pth")
+        T.save_checkpoint(state, path)
+        sd, ck_cfg = load_xmem_checkpoint(path, cfg.xmem)
+        net = XMem(ck_cfg)
+        net.load_state_dict(sd, strict=True)
+        trained = {k: v.cpu() for k, v in state.net.state_dict().items()}
+        check(all(torch.equal(net.state_dict()[k], v) for k, v in trained.items()),
+              "train: the reloaded network differs")
+        fresh = T.init_train_state(xmem_init(cfg.xmem, seed=1, device="cuda"), tcfg)
+        T.load_checkpoint(path, fresh)
+        check(fresh.it == n_steps and fresh.count == n_steps
+              and all(torch.equal(fresh.mu[k], state.mu[k]) for k in state.mu),
+              "train: load_checkpoint did not restore the optimizer")
+        del state, fresh, net
+        torch.cuda.empty_cache()
+
+    # toy dims: card vs CPU, grad_accum 2 vs the full batch
+    rng = np.random.default_rng(0)
+    frames = (0.01 * rng.normal(size=(2, 3, 64, 64, 3))).astype(np.float32)
+    gt = np.zeros((2, 3, 64, 64), np.int32)
+    gt[:, :, 16:40, 16:40] = 1
+    gt[1, :, 40:60, 4:24] = 2
+    ov = np.array([[True, False], [True, True]])
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cpu = _toy_step(torch, "cpu", frames, gt, ov)
+        card_step = _toy_step(torch, "cuda", frames, gt, ov)
+        out["card_vs_cpu"] = _compare_steps(torch, "one step, card vs CPU", card_step, cpu)
+        acc = _toy_step(torch, "cuda", frames, gt, ov, grad_accum=2)
+        out["grad_accum_2_vs_full"] = _compare_steps(torch, "grad_accum 2 vs the full batch "
+                                                     "on the card", acc, card_step)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log("[train] a card checkpoint reloads (load_xmem_checkpoint, load_checkpoint)")
+    return out
+
+
 def _profile_frames(torch, step, n_prof: int):
     """torch.profiler over `n_prof` calls of step(i): device time by kernel
     and the device's busy share of the window."""
@@ -2288,17 +2656,23 @@ def main() -> int:
         record["inpaint"] = phase_inpaint(torch)
         torch.cuda.empty_cache()
         record["eval"] = phase_eval(torch)
+        torch.cuda.empty_cache()
+        record["serve"] = phase_serve(torch, record["card"])
+        record["train"] = phase_train(torch, record["card"])
+        serving = (record["serve"]["launches"], record["serve"]["app"]["launches"])
         # launches: the sum over the main-path runs (phase 3, each of phase
-        # 5's runs, phase 7 and phase 9's runs), each counted from 0 right
-        # before the run
+        # 5's runs, phase 7, phase 9's runs, phase 10's requests and its app
+        # session), each counted from 0 right before the run
         for kr in kernels:
             kr["launches"] = counts.get(kr["name"], 0) + sum(
                 r["launches"][kr["name"]] for r in record["main_path"].values()
             ) + record["interactive"]["launches"][kr["name"]] + record["eval"]["launches"].get(
-                kr["name"], 0)
+                kr["name"], 0) + sum(c.get(kr["name"], 0) for c in serving)
             check(kr["launches"] > 0, f"{kr['name']} never launched on the main path")
-        # B6: the sum over phase 8's inpaint runs, each counted from 0
-        b6["launches"] = record["inpaint"]["b6_launches"]
+        # B6: the sum over phase 8's inpaint runs and phase 10's, each
+        # counted from 0
+        b6["launches"] = record["inpaint"]["b6_launches"] + sum(
+            c["deform_patches_bounded"] for c in serving)
         check(b6["launches"] > 0, "deform_patches_bounded never launched on the inpaint path")
         # B7 is a probe on no product path: its launches are those of its own
         # entry point's run in phase 2e, counted from 0 there

@@ -222,7 +222,7 @@ def test_cpu_tensors_take_the_plain_version(rng):
     assert tmr.COUNTS == {"fused_memory_read_shared": 0, "fused_memory_read": 0, "plain": 2}
 
 
-# ------------------------------------- the kernel's operands (host side)
+# ------------------------------------- the kernels' inputs (host side)
 
 from vosesam_tpu_torch.ops.memory_attention import get_similarity  # noqa: E402
 
@@ -237,64 +237,26 @@ def _torch_case(rng, m=900, q=120, ck=64, bf16=True):
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("drop_ms, drop_qe", [(False, False), (True, False), (False, True),
                                               (True, True)])
-def test_similarity_operands_rebuild_get_similarity(rng, bf16, drop_ms, drop_qe):
-    """bf16 inputs: the similarity rebuilt from the kernels' operands in fp32
-    matmuls equals `get_similarity`, with and without selection and
-    shrinkage, up to fp32 reassociation: each side sums n = 4 Ck + 2 terms
-    (a depth-4Ck product against two depth-Ck ones), so each is within
-    n * 2^-24 of the exact value relative to the sum of the terms'
-    magnitudes; the bound is twice that. fp32 inputs have no tensor-core
-    operands: the kernels take `get_similarity` itself."""
-    mk, ms, qk, qe = _torch_case(rng, bf16=bf16)
+def test_kernel_inputs_are_get_similarity_for_every_dtype(rng, bf16, drop_ms, drop_qe):
+    """The kernels stream `get_similarity`'s fp32 matrix for bf16 and fp32
+    keys alike, with and without shrinkage and selection: bit for bit the
+    values `topk_softmax` selects from in the plain versions (ROADMAP C24),
+    contiguous for the kernels' row-pitch reads; the validity rows go as
+    contiguous uint8."""
+    mk, ms, qk, qe = _torch_case(rng, m=300, q=40, bf16=bf16)
     ms = None if drop_ms else ms
     qe = None if drop_qe else qe
+    valid = torch.from_numpy(rng.random((2, 300)) > 0.3)
+    sim, valid_u8 = tmr.kernel_inputs(mk, ms, qk, qe, valid[:, ::1])
     want = get_similarity(mk, ms, qk, qe)
-    if not bf16:
-        assert not tmr._tensor_cores(mk, qk, qe)
-        with pytest.raises(ValueError, match="bf16 keys"):
-            tmr.similarity_operands(mk, ms, qk, qe)
-        return
-    ops = tmr.similarity_operands(mk, ms, qk, qe)
-    assert ops.a.dtype == torch.bfloat16 and ops.mk.dtype == torch.bfloat16
-    got = tmr.similarity_from_operands(ops)
-    ck = mk.shape[1]
-    mk32 = ops.mk.float()
-    b_abs = torch.cat([mk32 * mk32, mk32 * mk32, mk32.abs(), mk32.abs()], 1)
-    magnitude = ops.a.float().abs() @ b_abs.T + ops.rb.abs()[:, None]
-    if ms is not None:
-        magnitude = magnitude * ms[None, :]
-    bound = 2 * (4 * ck + 2) * 2.0 ** -24 * magnitude / ck ** 0.5
-    assert got.shape == want.shape and got.dtype == torch.float32
-    assert bool(((got - want).abs() <= bound).all()), float((got - want).abs().max())
-
-
-def test_bf16_split_is_exact(rng):
-    """qe * qk and mk^2 of bf16 values have at most 16 significant bits, so
-    their bf16 hi + lo split loses nothing: hi + lo equals them bit for bit."""
-    mk, _, qk, qe = _torch_case(rng, m=2000, q=300)
-    p = qe.float() * qk.float()
-    hi, lo = tmr.bf16_split(p)
-    assert hi.dtype == lo.dtype == torch.bfloat16
-    assert torch.equal(hi.float() + lo.float(), p)
-    sq_hi, sq_lo = tmr.square_split(mk)
-    assert torch.equal(sq_hi.float() + sq_lo.float(), mk.float() * mk.float())
-    # the operand a holds the split parts, doubled and negated exactly
-    ops = tmr.similarity_operands(mk, None, qk, qe)
-    ck = mk.shape[1]
-    assert torch.equal(ops.a[:, :ck], -qe) and torch.equal(ops.a[:, ck:2 * ck], -qe)
-    assert torch.equal(ops.a[:, 2 * ck:3 * ck].float() + ops.a[:, 3 * ck:].float(), 2 * p)
-
-
-def test_similarity_operands_fp32_path_for_other_inputs(rng):
-    """Keys whose width the tensor-core instance does not take (Ck 40), or a
-    mix of bf16 keys and fp32 queries, are not tensor-core inputs: the
-    kernels read `get_similarity`'s similarity for them."""
-    mk, ms, qk, qe = _torch_case(rng, m=300, q=40, ck=40)
-    assert not tmr._tensor_cores(mk, qk, qe)
-    with pytest.raises(ValueError):
-        tmr.similarity_operands(mk, ms, qk, qe)
-    mk, ms, qk, qe = _torch_case(rng, m=300, q=40)
-    assert tmr._tensor_cores(mk, qk, qe) and not tmr._tensor_cores(mk, qk.float(), qe)
+    assert sim.dtype == torch.float32 and sim.is_contiguous()
+    assert torch.equal(sim, want)
+    assert valid_u8.dtype == torch.uint8 and valid_u8.is_contiguous()
+    assert torch.equal(valid_u8.bool(), valid)
+    # a strided validity view is made contiguous, not reinterpreted
+    strided = torch.from_numpy(rng.random((600, 2)) > 0.5).T
+    _, vu8 = tmr.kernel_inputs(mk, ms, qk, qe, strided[:, :300])
+    assert vu8.is_contiguous() and torch.equal(vu8.bool(), strided[:, :300])
 
 
 @pytest.mark.parametrize("q, groups, live_end, slots, want", [
@@ -310,10 +272,9 @@ def test_splits_for(q, groups, live_end, slots, want):
 
 
 def test_row_groups_and_tensor_core_choice(rng):
+    """Blocks along the validity rows: one per row in shared mode, two rows a
+    block in per-object mode. No instance takes the tensor cores any more:
+    every input reaches the kernels as `get_similarity`'s matrix."""
     assert [tmr._row_groups(r, True) for r in (1, 2, 3)] == [1, 2, 3]
     assert [tmr._row_groups(r, False) for r in (1, 2, 3, 8)] == [1, 1, 2, 4]
-    mk, _, qk, qe = _torch_case(rng, m=64, q=16)
-    assert tmr._tensor_cores(mk, qk, qe) and tmr._tensor_cores(mk, qk, None)
-    assert not tmr._tensor_cores(mk.float(), qk, qe)
-    assert not tmr._tensor_cores(mk, qk, qe.float())
-    assert not tmr._tensor_cores(mk[:, :40], qk[:, :40], None)
+    assert not hasattr(tmr, "_tensor_cores") and not hasattr(tmr, "similarity_operands")

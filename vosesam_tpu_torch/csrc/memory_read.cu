@@ -1,7 +1,6 @@
-// Fused XMem memory read for Hopper (sm_90a): the similarity, an exact
-// top-k threshold, the sparse softmax and the value readout, plus the
-// per-slot usage column sums, without the (Q, M) similarity ever reaching
-// device memory.
+// Fused XMem memory read for Hopper (sm_90a): an exact top-k threshold, the
+// sparse softmax and the value readout over a (Q, M) similarity matrix,
+// plus the per-slot usage column sums.
 //
 // Replaces the Pallas TPU kernels in vosesam_tpu/ops/pallas/memory_read.py:
 //   fused_memory_read_shared (one validity row shared by every object)
@@ -10,35 +9,25 @@
 // every object read out against one threshold) or R = O (per-object mode,
 // validity row r reads out object r).
 //
-// The similarity (ops/memory_attention.py:get_similarity)
-//   sim = (-sum_c qe mk^2 + 2 sum_c qe qk mk - sum_c qe qk^2) * ms / sqrt(Ck)
-// is rebuilt in the kernel as sim = (a . b_m + rb_q) * cs_m / sqrt(Ck) from
-// operands the kernel builds (memory_read.py:similarity_operands is their
-// torch form):
-//   bf16 keys (the main path), tensor cores: a = [-qe, -qe, 2 p_hi, 2 p_lo]
-//     with p = qe * qk, exact in fp32, split into bf16 p_hi + p_lo with no
-//     loss; b_m = [sq_hi, sq_lo, mk, mk] with mk^2 (exact in fp32) split the
-//     same way as a chunk of keys arrives in shared memory. Every product is
-//     exact, so the depth-4Ck mma.sync m16n8k16 product with fp32
-//     accumulation equals the fp32 version up to summation order (qe = None:
-//     a = [-1, -1, 2 qk, 0]).
-//   other inputs (the fp32 checks): the kernels read the (Q, M) similarity
-//     get_similarity computed, so that they select from the same values as
-//     the plain chain. An FFMA similarity in the kernel differs from
-//     cuBLAS's in the last bits, and random-weight XMem amplified that past
-//     the fp32 rollout's share bounds (PERF.md, PR 5).
+// The input contract is the JAX kernel's: the kernels stream the fp32
+// similarity that ops/memory_attention.py:get_similarity computed once,
+//   sim = (-sum_c qe mk^2 + 2 sum_c qe qk mk - sum_c qe qk^2) * ms / sqrt(Ck),
+// for every input dtype. The kernels and the plain chain (topk_softmax on
+// the same matrix) therefore select their top k from the same values, bit
+// for bit. (An earlier design rebuilt the similarity on the tensor cores
+// for bf16 keys; its own summation order admitted other slots than the
+// plain chain on 0.13% of a rollout's query rows at near-ties.)
 //
-// What bounds it on the H100: operations. The first design read a torch
-// similarity, (Q, M) fp32 = 111 MB at DAVIS 480p (Q = 1620, M = 17 200),
-// four times and more (its production, the top-k scan, the admission scan,
-// the usage column sums: > 0.5 GB per call, ~16x the bound), and ran one
-// block per query row with 60 block barriers for its k argmax rounds. Here
-// a block of 4 warps owns 16 query rows, one or two validity rows and one of
-// S splits of the memory axis (S as large as keeps every block in one round
-// of the card's resident blocks), and streams its slots in chunks of 64
-// through a three-stage cp.async ring, one block barrier a chunk. A warp
-// computes 16 rows x 16 slots of each chunk's similarity on the tensor
-// cores, and the values never leave its registers:
+// What bounds it on the H100: bytes. The matrix is (Q, M) fp32, 111 MB at
+// DAVIS 480p (Q = 1620, M = 17 200), and the select and apply kernels each
+// stream it once (it does not fit in L2). A block of 4 warps owns 16 query
+// rows, one or two validity rows and one of S splits of the memory axis (S
+// as large as keeps every block in one round of the card's resident
+// blocks), and streams its slots in chunks of 64 through a three-stage
+// cp.async ring (the chunk's 16 x 64 similarities, its validity bytes), one
+// block barrier a chunk. A lane holds rows g and g + 8 of the chunk's
+// slots warp * 16 + (0..15 by its t4), read from shared memory as float2
+// (the row pitch of 72 floats makes those reads conflict-free):
 //   memory_read_pass<select>  every lane keeps top-12 lists of its slots for
 //     its two rows (an insertion only when a warp has a value that beats a
 //     list's last); at the end the 4 lanes, then the 4 warps of a row merge
@@ -49,13 +38,13 @@
 //     lane) into the row max and the exact k-th value (duplicates counted as
 //     lax.top_k), and the softmax denominator from the picks and the
 //     remaining ties (if a split's list ended in a tie of the threshold, one
-//     scan over the whole memory recomputes the denominator); then
-//     recomputes its tiles (bit for bit the same values), admits sim >=
-//     threshold && valid, writes the normalised affinity's column sums
-//     (lane shuffles in a fixed order) as this (row tile, validity rows)'s
-//     usage partial, and keeps the admitted (slot, affinity) entries of each
-//     (row, warp) in shared memory, 16 at most before they are read out into
-//     a readout partial; the entries go to a small scratch at the end.
+//     scan over the whole memory recomputes the denominator); then streams
+//     its tiles again, admits sim >= threshold && valid, writes the
+//     normalised affinity's column sums (lane shuffles in a fixed order) as
+//     this (row tile, validity rows)'s usage partial, and keeps the admitted
+//     (slot, affinity) entries of each (row, warp) in shared memory, 16 at
+//     most before they are read out into a readout partial; the entries go
+//     to a small scratch at the end.
 //   memory_read_finish  reads out the kept entries (fp32 weights times bf16
 //     or fp32 values) and adds the partials, in split and warp order.
 //   memory_read_usage  adds the usage partials over the row tiles in a
@@ -64,7 +53,7 @@
 // choice (memory/manager.py) does not change from run to run. Rows with
 // fewer than k valid slots get a NEG_INF threshold and admit every valid
 // slot; a row with no valid slot reads out zeros.
-// vosesam_memory_read_occupancy reports each instance's registers, shared
+// vosesam_memory_read_occupancy reports each kernel's registers, shared
 // memory and resident blocks per SM on the card.
 // Built with -DVOSESAM_PROFILE, thread 0 of every block stamps the global
 // timer at the ends of its phases (python -m vosesam_tpu_torch.ops.kernels.phases).
@@ -86,19 +75,19 @@ namespace {
 using vosesam::cp_async16;
 using vosesam::cp_async_commit;
 using vosesam::cp_async_wait;
-using vosesam::ldmatrix_x4;
-using vosesam::mma_bf16;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;               // query rows per block (one mma m-tile)
+constexpr int kRows = 16;               // query rows per block
 constexpr int kChunk = 64;              // memory slots per streamed chunk
+constexpr int kPitch = kChunk + 8;      // floats per staged row: conflict-free float2 reads
 constexpr int kSub = kThreads / kRows;  // threads per query row in the selection
 constexpr int kMaxK = 32;               // list length: top_k <= 32
 constexpr int kLane = 12;               // a lane's list in the select scan's first try
 constexpr int kMaxSplits = 8;           // one split list per lane of a row in the merge
 constexpr int kCap = 16;                // admitted entries per (row, warp) before a flush
 constexpr int kBlocksPerSm = 4;         // launch bounds: registers for 4 blocks an SM
+constexpr int kStages = 3;              // chunks in flight or in use
 constexpr float kNegInf = -1e30f;       // ops/memory_attention.py NEG_INF
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -130,11 +119,7 @@ __device__ __forceinline__ unsigned long long now_ns() {
 #endif
 
 struct Params {
-  const void* qk;            // (Q, Ck) bf16 (tensor cores) or fp32
-  const void* qe;            // (Q, Ck) selection or null
-  const void* mk;            // (M, Ck) bf16 keys (tensor cores)
-  const float* sim;          // (Q, M) fp32 similarity (other inputs)
-  const float* cs;           // (M,) column scale (shrinkage) or null
+  const float* sim;          // (Q, M) fp32 similarity (get_similarity)
   const uint8_t* valid;      // (R, M) 0/1
   const void* mv;            // (O, M, Cv)
   float* out;                // (O, Q, Cv) fp32
@@ -145,34 +130,24 @@ struct Params {
   float* rpart;              // (R, S, Q, warps, n_feat) readout partials of flushed lists
   int* rflag;                // (R, S, Q, warps) 1 where a readout partial was written
   float* upart;              // (R, Q tiles, M) usage partials
-  int Q, M, ck, live_end, O, Cv, k, R, shared_mode, n_feat, splits, cps, n_chunks;
+  int Q, M, live_end, O, Cv, k, R, shared_mode, n_feat, splits, cps, n_chunks;
 };
-
-// bf16 elements of one stage: a chunk of keys, rows padded by 8
-// (conflict-free ldmatrix rows)
-template <int CK>
-constexpr int kStageElems = kChunk * (CK + 8);
-constexpr int kStages = 3;  // key chunks in flight or in use
 
 // Shared-memory layout of one block (bytes from the start).
 struct Layout {
-  int stage, a, cs, vd, rb, work, total;
+  int stage, vd, rows, work, total;
 };
 
-__host__ __device__ inline Layout layout(bool tc, int ck, int rg) {
+__host__ __device__ inline Layout layout(int rg) {
   Layout L;
   int off = 0;
-  L.stage = off;
-  off += tc ? kStages * kChunk * (ck + 8) * 2 : 0;
-  L.a = off;  // the query operand: bf16 (16, 4 Ck + 8)
-  off += tc ? kRows * (4 * ck + 8) * 2 : 0;
-  L.cs = off;
-  off += kStages * kChunk * 4;
-  L.vd = off;  // validity bytes of the block's validity rows, a stage each
+  L.stage = off;  // the similarity tiles: [kStages][kRows][kPitch] fp32
+  off += kStages * kRows * kPitch * 4;
+  L.vd = off;     // validity bytes of the block's validity rows, a stage each
   off += kStages * rg * kChunk;
-  L.rb = off;
-  off += 4 * rg * kRows * 4;  // the row term, then threshold, max, denominator
-  L.work = off;  // select: the warps' per-row lists; apply: the admitted entries
+  L.rows = off;   // threshold, max, denominator per (validity row, row)
+  off += 3 * rg * kRows * 4;
+  L.work = off;   // select: the warps' per-row lists; apply: the admitted entries
   const int lists = kWarps * kRows * kMaxK * 4 + kWarps * kRows * 4 * 4;
   const int entries = rg * kWarps * kRows * kCap * 8;
   off += lists > entries ? lists : entries;
@@ -185,18 +160,6 @@ __device__ __forceinline__ T group_sum(T v) {
 #pragma unroll
   for (int off = 1; off < kSub; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// The squares of a bf16 pair (exact in fp32) as bf16 hi and lo pairs:
-// hi = bf16(x^2), lo = bf16(x^2 - hi), and hi + lo == x^2 exactly.
-__device__ __forceinline__ void square_split2(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
-  const float a = __low2float(v), b = __high2float(v);
-  const float sa = a * a, sb = b * b;
-  const __nv_bfloat162 h = __floats2bfloat162_rn(sa, sb);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(sa - __low2float(h), sb - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // Insert s into a descending register list (compare-exchange down the list).
@@ -244,24 +207,20 @@ __device__ __forceinline__ float lanes_pop(float (&top)[N], int me) {
 }
 
 // RG validity rows per block (1, or 2 in per-object mode): they share every
-// similarity tile. A lane's similarities stay in registers in the mma
-// accumulator layout: rows g and g + 8 of the block, slots warp * 16 +
-// nt * 8 + t4 * 2 + e of the chunk, sim[h][nt * 2 + e].
-template <bool TC, int CK, typename TV, bool APPLY, int RG>
+// similarity tile. A lane's similarities of a chunk: rows g and g + 8 of the
+// block, slots warp * 16 + (j / 2) * 8 + t4 * 2 + j % 2, sim[h][j].
+template <typename TV, bool APPLY, int RG>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) memory_read_pass(Params p) {
-  constexpr int KS = TC ? CK / 16 : 1;  // 16-deep mma steps per operand section
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ck = TC ? CK : p.ck;
-  const Layout L = layout(TC, ck, RG);
-  float* sCs = reinterpret_cast<float*>(smem + L.cs);
-  uint8_t* sVd = smem + L.vd;  // [kStages][RG][kChunk]
-  float* sRb = reinterpret_cast<float*>(smem + L.rb);  // [kRows]
-  float* sTh = sRb + kRows;                             // [RG][kRows]
-  float* sMx = sTh + RG * kRows;                        // [RG][kRows]
-  float* sDen = sMx + RG * kRows;                       // [RG][kRows]
+  const Layout L = layout(RG);
+  float* sSim = reinterpret_cast<float*>(smem + L.stage);  // [kStages][kRows][kPitch]
+  uint8_t* sVd = smem + L.vd;                               // [kStages][RG][kChunk]
+  float* sTh = reinterpret_cast<float*>(smem + L.rows);     // [RG][kRows]
+  float* sMx = sTh + RG * kRows;                            // [RG][kRows]
+  float* sDen = sMx + RG * kRows;                           // [RG][kRows]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;        // mma layout
+  const int g = lane >> 2, t4 = lane & 3;        // tile layout
   const int row = tid / kSub, sub = tid % kSub;  // row layout: 8 lanes a row
   const int q0 = blockIdx.x * kRows;
   const int split = blockIdx.y;
@@ -270,65 +229,34 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) memory_read_pass(Param
   const bool live_h[2] = {q0 + g < p.Q, q0 + g + 8 < p.Q};
   const int c_begin = split * p.cps;
   const int c_end = min(p.n_chunks, c_begin + p.cps);
-  const float inv_sqrt_ck = 1.f / sqrtf((float)ck);
   auto slot_of = [&](int j) { return warp * 16 + (j >> 1) * 8 + t4 * 2 + (j & 1); };
 
-  // the block's rows of the query operand a, and the row term
-  // rb = -sum_c qe qk^2 (0 without qe), made from qk / qe in shared memory
-  if constexpr (TC) {
-    const __nv_bfloat16* qk = static_cast<const __nv_bfloat16*>(p.qk);
-    const __nv_bfloat16* qe = static_cast<const __nv_bfloat16*>(p.qe);
-    __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem + L.a);
-    constexpr int LDA = 4 * CK + 8;
-    for (int i = tid; i < kRows * CK; i += kThreads) {
-      const int rr = i / CK, c = i - rr * CK;
-      float e = 0.f, x = 0.f;
-      if (q0 + rr < p.Q) {
-        x = __bfloat162float(qk[(size_t)(q0 + rr) * CK + c]);
-        e = qe != nullptr ? __bfloat162float(qe[(size_t)(q0 + rr) * CK + c]) : 1.f;
-      }
-      const float pr = e * x;  // exact: two bf16 significands
-      const __nv_bfloat16 hi = __float2bfloat16_rn(pr);
-      const __nv_bfloat16 lo = __float2bfloat16_rn(pr - __bfloat162float(hi));
-      __nv_bfloat16* ar = sA + rr * LDA;
-      ar[c] = ar[CK + c] = __float2bfloat16_rn(-e);
-      ar[2 * CK + c] = __float2bfloat16_rn(2.f * __bfloat162float(hi));
-      ar[3 * CK + c] = __float2bfloat16_rn(2.f * __bfloat162float(lo));
-    }
-  }
-  if (TC && tid < kRows) {
-    float b = 0.f;
-    if (p.qe != nullptr && q0 + tid < p.Q) {
-      const __nv_bfloat16* qk = static_cast<const __nv_bfloat16*>(p.qk);
-      const __nv_bfloat16* qe = static_cast<const __nv_bfloat16*>(p.qe);
-      for (int c = 0; c < ck; ++c) {
-        const float e = __bfloat162float(qe[(size_t)(q0 + tid) * ck + c]);
-        const float x = __bfloat162float(qk[(size_t)(q0 + tid) * ck + c]);
-        b += e * x * x;
-      }
-    }
-    sRb[tid] = -b;
-  }
-
   // chunk c into stage c % kStages, two chunks ahead of its use, in one
-  // cp.async group: its column scale, its validity bytes and (tensor cores)
-  // its keys. Slots past live_end are zero (invalid); sources that are not
-  // 16-byte aligned are copied by plain loads.
+  // cp.async group: its 16 x 64 similarities and its validity bytes. Slots
+  // at or past live_end and rows past Q are zero (and invalid); pieces that
+  // are not 16-byte aligned or straddle live_end are copied by plain loads.
+  const bool sim_async = p.M % 4 == 0 && reinterpret_cast<uintptr_t>(p.sim) % 16 == 0;
   const bool vd_async = p.M % 16 == 0 && reinterpret_cast<uintptr_t>(p.valid) % 16 == 0;
   auto issue_chunk = [&](int c) {
     const int buf = c % kStages;
     const int m0 = c * kChunk;
-    if (tid < kChunk / 4) {  // column scale: 16 pieces of 4 floats
-      float* dst = sCs + buf * kChunk + tid * 4;
-      const int m = m0 + tid * 4;
-      if (p.cs != nullptr && m + 4 <= p.M && reinterpret_cast<uintptr_t>(p.cs) % 16 == 0) {
-        cp_async16(dst, p.cs + m, true);
+    // the similarities: 16 rows x 16 pieces of 4 floats, two pieces a thread
+#pragma unroll
+    for (int it = 0; it < (kRows * kChunk / 4) / kThreads; ++it) {
+      const int piece = tid + it * kThreads;
+      const int rr = piece / (kChunk / 4), v = piece % (kChunk / 4);
+      const int q = q0 + rr, m = m0 + v * 4;
+      float* dst = sSim + (buf * kRows + rr) * kPitch + v * 4;
+      const float* src = p.sim + (size_t)min(q, p.Q - 1) * p.M + min(m, p.M - 1);
+      const int n = q < p.Q ? max(0, min(4, p.live_end - m)) : 0;
+      if (sim_async && (n == 4 || n == 0)) {
+        cp_async16(dst, n == 4 ? src : p.sim, n == 4);
       } else {
-        for (int e = 0; e < 4; ++e)
-          dst[e] = (p.cs != nullptr && m + e < p.M) ? p.cs[m + e] : 1.f;
+        for (int e = 0; e < 4; ++e) dst[e] = e < n ? src[e] : 0.f;
       }
-    } else if (tid < kChunk / 4 + RG * (kChunk / 16)) {  // validity: 4 pieces a row
-      const int t = tid - kChunk / 4, i = t / (kChunk / 16), piece = t % (kChunk / 16);
+    }
+    if (tid < RG * (kChunk / 16)) {  // validity: 4 pieces a row
+      const int i = tid / (kChunk / 16), piece = tid % (kChunk / 16);
       uint8_t* dst = sVd + (buf * RG + i) * kChunk + piece * 16;
       const int m = m0 + piece * 16;
       const int n = (r0 + i < p.R) ? max(0, min(16, p.live_end - m)) : 0;
@@ -337,17 +265,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) memory_read_pass(Param
         cp_async16(dst, src, n == 16);
       } else {
         for (int e = 0; e < 16; ++e) dst[e] = e < n ? src[e] : 0;
-      }
-    }
-    if constexpr (TC) {
-      const __nv_bfloat16* mk = static_cast<const __nv_bfloat16*>(p.mk);
-      __nv_bfloat16* dk = reinterpret_cast<__nv_bfloat16*>(smem + L.stage) + buf * kStageElems<CK>;
-      constexpr int cpr = CK / 8;  // 16-byte pieces per slot
-      for (int i = tid; i < kChunk * cpr; i += kThreads) {
-        const int rr = i / cpr, v = i - rr * cpr;
-        const int m = m0 + rr;
-        const bool ok = m < p.live_end;
-        cp_async16(dk + rr * (CK + 8) + v * 8, ok ? mk + (size_t)m * CK + v * 8 : mk, ok);
       }
     }
     cp_async_commit();
@@ -360,13 +277,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) memory_read_pass(Param
 
   // The similarities of chunk c into sim (begin() or the tile() before has
   // issued chunks c and c + 1; chunk c + 2 is issued here). Called by all
-  // threads; identical inputs give identical values in every pass. One
-  // barrier (two for fp32 keys): chunk c's data is in, every warp is done
-  // with chunk c - 1.
+  // threads. One barrier: chunk c's data is in, every warp is done with
+  // chunk c - 1.
   auto tile = [&](int c, int last, float (&sim)[2][4]) {
-    const int c0 = c * kChunk;
     const int buf = c % kStages;
-    const unsigned long long t_in = PROF_NOW();
+    [[maybe_unused]] const unsigned long long t_in = PROF_NOW();
     if (c + 1 < last) {
       cp_async_wait<1>();
     } else {
@@ -374,61 +289,20 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) memory_read_pass(Param
     }
     __syncthreads();  // chunk c is in; every warp is done with chunk c - 1
     if (c + 2 < last) issue_chunk(c + 2);
-    if constexpr (TC) {
-      const unsigned long long t_ready = PROF_NOW();
-      PROF_ADD(APPLY ? 4 : 12, t_ready - t_in);
-      PROF_ADD(APPLY ? 6 : 14, 1);
-      const __nv_bfloat16* sA = reinterpret_cast<const __nv_bfloat16*>(smem + L.a);
-      const __nv_bfloat16* dk =
-          reinterpret_cast<const __nv_bfloat16*>(smem + L.stage) + buf * kStageElems<CK>;
-      // warp w: slots [16 w, 16 w + 16) of the chunk, all 16 rows; the
-      // squared keys' hi / lo fragments are made in registers from the key
-      // fragments; two independent mma chains: the squared-key sections and
-      // the key ones. ldmatrix lane addresses: A rows lane % 16, k half
-      // lane / 16; B slot rows (lane % 8) + 8 (lane / 16), k half (lane / 8) % 2
-      const int arow = lane & 15, acol = (lane >> 4) * 8;
-      const int brow = warp * 16 + (lane & 7) + ((lane >> 4) << 3), bcol = ((lane >> 3) & 1) * 8;
-      float acc[2][2][4];
+    [[maybe_unused]] const unsigned long long t_ready = PROF_NOW();
+    PROF_ADD(APPLY ? 4 : 12, t_ready - t_in);
+    PROF_ADD(APPLY ? 6 : 14, 1);
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h) {
+      const float* sr = sSim + (buf * kRows + g + 8 * h) * kPitch;
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          acc[h][nt][0] = acc[h][nt][1] = acc[h][nt][2] = acc[h][nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t bk[4], bh[4], bl[4];
-        ldmatrix_x4(bk, dk + brow * (CK + 8) + ks * 16 + bcol);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) square_split2(bk[i], bh[i], bl[i]);
-#pragma unroll
-        for (int sec = 0; sec < 4; ++sec) {
-          uint32_t af[4];
-          ldmatrix_x4(af, sA + arow * (4 * CK + 8) + sec * CK + ks * 16 + acol);
-          const uint32_t* b = sec == 0 ? bh : sec == 1 ? bl : bk;
-          mma_bf16(acc[sec >> 1][0], af, b[0], b[1]);
-          mma_bf16(acc[sec >> 1][1], af, b[2], b[3]);
-        }
+      for (int jp = 0; jp < 2; ++jp) {
+        const float2 v = *reinterpret_cast<const float2*>(sr + slot_of(2 * jp));
+        sim[h][2 * jp] = v.x;
+        sim[h][2 * jp + 1] = v.y;
       }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float rb = sRb[g + 8 * h];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float dot = acc[0][j >> 1][2 * h + (j & 1)] + acc[1][j >> 1][2 * h + (j & 1)];
-          sim[h][j] = (dot + rb) * sCs[buf * kChunk + slot_of(j)] * inv_sqrt_ck;
-        }
-      }
-      PROF_ADD(APPLY ? 5 : 13, PROF_NOW() - t_ready);
-    } else {
-      // the similarity get_similarity computed in torch (fp32 inputs)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int m = c0 + slot_of(j);
-          sim[h][j] = live_h[h] && m < p.M ? p.sim[(size_t)(q0 + g + 8 * h) * p.M + m] : 0.f;
-        }
     }
+    PROF_ADD(APPLY ? 5 : 13, PROF_NOW() - t_ready);
   };
   // valid in validity row i at slot j of the lane's row h in chunk c
   auto valid_at = [&](int c, int i, int h, int j) {
@@ -789,20 +663,20 @@ __global__ void memory_read_usage(const float* __restrict__ partial, float* __re
   usage[m] = u * scale;
 }
 
-template <bool TC, int CK, typename TV, int RG>
+template <typename TV, int RG>
 int launch_rg(const Params& p, int q_tiles, cudaStream_t s) {
   const dim3 grid(q_tiles, p.splits, (p.R + RG - 1) / RG);
-  const size_t smem = layout(TC, TC ? CK : p.ck, RG).total;
-  cudaError_t err = cudaFuncSetAttribute(memory_read_pass<TC, CK, TV, false, RG>,
+  const size_t smem = layout(RG).total;
+  cudaError_t err = cudaFuncSetAttribute(memory_read_pass<TV, false, RG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(memory_read_pass<TC, CK, TV, true, RG>,
+    err = cudaFuncSetAttribute(memory_read_pass<TV, true, RG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  memory_read_pass<TC, CK, TV, false, RG><<<grid, kThreads, smem, s>>>(p);
+  memory_read_pass<TV, false, RG><<<grid, kThreads, smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  memory_read_pass<TC, CK, TV, true, RG><<<grid, kThreads, smem, s>>>(p);
+  memory_read_pass<TV, true, RG><<<grid, kThreads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -810,25 +684,10 @@ int launch_rg(const Params& p, int q_tiles, cudaStream_t s) {
 // each similarity tile
 inline int rows_per_block(const Params& p) { return (!p.shared_mode && p.R >= 2) ? 2 : 1; }
 
-template <bool TC, int CK, typename TV>
+template <typename TV>
 int launch(const Params& p, int q_tiles, cudaStream_t s) {
-  return rows_per_block(p) == 2 ? launch_rg<TC, CK, TV, 2>(p, q_tiles, s)
-                                : launch_rg<TC, CK, TV, 1>(p, q_tiles, s);
-}
-
-template <bool TC, typename TV>
-int launch_ck(const Params& p, int q_tiles, cudaStream_t s) {
-  if constexpr (!TC) {
-    return launch<false, 0, TV>(p, q_tiles, s);
-  } else {
-    switch (p.ck) {
-      case 16: return launch<true, 16, TV>(p, q_tiles, s);
-      case 32: return launch<true, 32, TV>(p, q_tiles, s);
-      case 48: return launch<true, 48, TV>(p, q_tiles, s);
-      case 64: return launch<true, 64, TV>(p, q_tiles, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
+  return rows_per_block(p) == 2 ? launch_rg<TV, 2>(p, q_tiles, s)
+                                : launch_rg<TV, 1>(p, q_tiles, s);
 }
 
 template <typename K>
@@ -850,48 +709,41 @@ int occupancy(K kernel, int threads, size_t smem, int* info) {
   return 0;
 }
 
-template <bool TC, int CK, typename TV>
-int occupancy_pass(int kernel, int ck, int* info) {
+template <typename TV>
+int occupancy_pass(int kernel, int* info) {
   const bool apply = kernel % 2 == 1;
   const int rg = kernel >= 4 ? 2 : 1;
-  const size_t smem = layout(TC, ck, rg).total;
+  const size_t smem = layout(rg).total;
   if (rg == 2)
-    return apply ? occupancy(memory_read_pass<TC, CK, TV, true, 2>, kThreads, smem, info)
-                 : occupancy(memory_read_pass<TC, CK, TV, false, 2>, kThreads, smem, info);
-  return apply ? occupancy(memory_read_pass<TC, CK, TV, true, 1>, kThreads, smem, info)
-               : occupancy(memory_read_pass<TC, CK, TV, false, 1>, kThreads, smem, info);
+    return apply ? occupancy(memory_read_pass<TV, true, 2>, kThreads, smem, info)
+                 : occupancy(memory_read_pass<TV, false, 2>, kThreads, smem, info);
+  return apply ? occupancy(memory_read_pass<TV, true, 1>, kThreads, smem, info)
+               : occupancy(memory_read_pass<TV, false, 1>, kThreads, smem, info);
 }
 
 }  // namespace
 
-// keys_tc: qk, qe (nullable) (Q, Ck) and mk (M, Ck) bf16 with Ck in {16, 32,
-// 48, 64}, sim null; else sim (Q, M) fp32, the similarity get_similarity
-// computed, and qk / qe / mk unused; cs (M,) fp32 or null;
-// valid (R, M) uint8; mv (O, M, Cv) bf16 (mv_is_bf16) or fp32; out (O, Q, Cv)
-// fp32. Scratch, splits S <= 8: lists R * Q * S * 32 floats; ecount and
-// rflag R * S * Q ints, eslot and eaff R * S * Q * 32 ints / floats; rpart R
-// * S * Q * n_feat floats (n_feat = O * Cv shared, Cv per object); upart
-// ceil(R / rows per block) * ceil(Q / 16) * M floats; usage
-// (M,) or null.
+// sim (Q, M) fp32, the similarity get_similarity computed; valid (R, M)
+// uint8; mv (O, M, Cv) bf16 (mv_is_bf16) or fp32; out (O, Q, Cv) fp32.
+// Scratch, splits S <= 8: lists R * Q * S * 32 floats; ecount and rflag R *
+// S * Q * 4 ints, eslot and eaff R * S * Q * 4 * 16 ints / floats; rpart R *
+// S * Q * 4 * n_feat floats (n_feat = O * Cv shared, Cv per object); upart
+// ceil(R / rows per block) * ceil(Q / 16) * M floats; usage (M,) or null.
 extern "C" int vosesam_memory_read(
-    const void* qk, const void* qe, const void* mk, const float* sim, const float* cs,
-    int keys_tc,
-    const uint8_t* valid, const void* mv, int mv_is_bf16, float* out, float* lists,
-    int* ecount, int* eslot, float* eaff, float* rpart, int* rflag, float* upart, float* usage, int Q, int M, int ck, int live_end,
-    int O, int Cv, int k, int R, int shared_mode, int splits, float usage_scale,
-    void* stream_ptr) {
-  if (k < 1 || k > kMaxK || live_end < 0 || live_end > M || ck < 1 || Cv < 1 || R < 1 ||
-      splits < 1 || splits > kMaxSplits)
-    return (int)cudaErrorInvalidValue;
-  if (keys_tc ? (ck % 16 != 0 || ck > 64 || sim != nullptr) : sim == nullptr)
+    const float* sim, const uint8_t* valid, const void* mv, int mv_is_bf16, float* out,
+    float* lists, int* ecount, int* eslot, float* eaff, float* rpart, int* rflag, float* upart,
+    float* usage, int Q, int M, int live_end, int O, int Cv, int k, int R, int shared_mode,
+    int splits, float usage_scale, void* stream_ptr) {
+  if (k < 1 || k > kMaxK || live_end < 0 || live_end > M || Cv < 1 || R < 1 ||
+      splits < 1 || splits > kMaxSplits || sim == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Params p;
-  p.qk = qk; p.qe = qe; p.mk = mk; p.sim = sim; p.cs = cs;
+  p.sim = sim;
   p.valid = valid; p.mv = mv; p.out = out;
   p.lists = lists; p.ecount = ecount; p.eslot = eslot; p.eaff = eaff;
   p.rpart = rpart; p.rflag = rflag; p.upart = upart;
-  p.Q = Q; p.M = M; p.ck = ck; p.live_end = live_end; p.O = O; p.Cv = Cv; p.k = k;
+  p.Q = Q; p.M = M; p.live_end = live_end; p.O = O; p.Cv = Cv; p.k = k;
   p.shared_mode = shared_mode;
   p.R = R;
   p.n_feat = (shared_mode ? O : 1) * Cv;
@@ -901,13 +753,8 @@ extern "C" int vosesam_memory_read(
   const int q_tiles = (Q + kRows - 1) / kRows;
   const int groups = (R + rows_per_block(p) - 1) / rows_per_block(p);
   if (Q > 0 && p.n_feat > 0) {
-    int rc;
-    if (keys_tc)
-      rc = mv_is_bf16 ? launch_ck<true, __nv_bfloat16>(p, q_tiles, stream)
-                      : launch_ck<true, float>(p, q_tiles, stream);
-    else
-      rc = mv_is_bf16 ? launch_ck<false, __nv_bfloat16>(p, q_tiles, stream)
-                      : launch_ck<false, float>(p, q_tiles, stream);
+    const int rc = mv_is_bf16 ? launch<__nv_bfloat16>(p, q_tiles, stream)
+                              : launch<float>(p, q_tiles, stream);
     if (rc != 0) return rc;
     const size_t n = (size_t)R * Q * p.n_feat;
     if (mv_is_bf16)
@@ -927,29 +774,17 @@ extern "C" int vosesam_memory_read(
 
 // The occupancy of one kernel as the card reports it: kernel 0 select, 1
 // apply (one validity row per block), 2 finish, 3 usage, 4 select, 5 apply
-// (two validity rows per block), of the instance keys_tc / ck / mv_is_bf16
-// select; info gets registers, static and dynamic shared bytes, resident
-// blocks per SM, threads per block, local (spill) bytes per thread.
-extern "C" int vosesam_memory_read_occupancy(int keys_tc, int ck, int mv_is_bf16, int kernel,
-                                             int* info) {
+// (two validity rows per block), with bf16 (mv_is_bf16) or fp32 values; info
+// gets registers, static and dynamic shared bytes, resident blocks per SM,
+// threads per block, local (spill) bytes per thread.
+extern "C" int vosesam_memory_read_occupancy(int mv_is_bf16, int kernel, int* info) {
   if (kernel == 2)
     return mv_is_bf16 ? occupancy(memory_read_finish<__nv_bfloat16>, 256, 0, info)
                       : occupancy(memory_read_finish<float>, 256, 0, info);
   if (kernel == 3) return occupancy(memory_read_usage, 256, 0, info);
-  if (!keys_tc)
-    return mv_is_bf16 ? occupancy_pass<false, 0, __nv_bfloat16>(kernel, ck, info)
-                      : occupancy_pass<false, 0, float>(kernel, ck, info);
-  switch (ck) {
-    case 16: return mv_is_bf16 ? occupancy_pass<true, 16, __nv_bfloat16>(kernel, ck, info)
-                               : occupancy_pass<true, 16, float>(kernel, ck, info);
-    case 32: return mv_is_bf16 ? occupancy_pass<true, 32, __nv_bfloat16>(kernel, ck, info)
-                               : occupancy_pass<true, 32, float>(kernel, ck, info);
-    case 48: return mv_is_bf16 ? occupancy_pass<true, 48, __nv_bfloat16>(kernel, ck, info)
-                               : occupancy_pass<true, 48, float>(kernel, ck, info);
-    case 64: return mv_is_bf16 ? occupancy_pass<true, 64, __nv_bfloat16>(kernel, ck, info)
-                               : occupancy_pass<true, 64, float>(kernel, ck, info);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (kernel < 0 || kernel > 5) return (int)cudaErrorInvalidValue;
+  return mv_is_bf16 ? occupancy_pass<__nv_bfloat16>(kernel, info)
+                    : occupancy_pass<float>(kernel, info);
 }
 
 #ifdef VOSESAM_PROFILE

@@ -17,7 +17,9 @@ numpy, torch and the standard library), so it keeps its own codecs:
 
 Any other file is read by its content: a PNG signature goes to the PNG
 reader, anything else to the JPEG path (Pillow reads any format by content,
-and so did the JAX harness).
+and so did the JAX harness). The same codecs work in memory, on bytes
+(`encode_png_palette`, `encode_png_rgb`, `decode_png`, `decode_rgb`,
+`decode_indices`), for the server's base64 payloads.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import ctypes
 import os
 import struct
 import subprocess
+import tempfile
 import threading
 import warnings
 import zlib
@@ -58,23 +61,36 @@ def _encode(pixels: np.ndarray, colour_type: int, extra: bytes = b"") -> bytes:
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
-def write_png_palette(path: str, index: np.ndarray, palette: np.ndarray) -> None:
-    """(H, W) uint8 indices and an (N, 3) uint8 palette -> an 8-bit palette PNG."""
+def encode_png_palette(index: np.ndarray, palette: np.ndarray) -> bytes:
+    """(H, W) uint8 indices and an (N, 3) uint8 palette -> the bytes of an
+    8-bit palette PNG."""
     index = np.ascontiguousarray(index, np.uint8)
     if index.ndim != 2:
         raise ValueError(f"palette PNG: indices must be (H, W), got {index.shape}")
     plte = np.ascontiguousarray(palette, np.uint8).reshape(-1, 3)[:256]
+    return _encode(index, 3, _chunk(b"PLTE", plte.tobytes()))
+
+
+def encode_png_rgb(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> the bytes of an 8-bit RGB PNG."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"RGB PNG: pixels must be (H, W, 3), got {rgb.shape}")
+    return _encode(rgb, 2)
+
+
+def write_png_palette(path: str, index: np.ndarray, palette: np.ndarray) -> None:
+    """(H, W) uint8 indices and an (N, 3) uint8 palette -> an 8-bit palette PNG."""
+    data = encode_png_palette(index, palette)
     with open(path, "wb") as f:
-        f.write(_encode(index, 3, _chunk(b"PLTE", plte.tobytes())))
+        f.write(data)
 
 
 def write_png_rgb(path: str, rgb: np.ndarray) -> None:
     """(H, W, 3) uint8 -> an 8-bit RGB PNG."""
-    rgb = np.ascontiguousarray(rgb, np.uint8)
-    if rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"RGB PNG: pixels must be (H, W, 3), got {rgb.shape}")
+    data = encode_png_rgb(rgb)
     with open(path, "wb") as f:
-        f.write(_encode(rgb, 2))
+        f.write(data)
 
 
 def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -115,11 +131,16 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], int]:
-    """-> (pixels, palette, colour type). Pixels are (H, W) for greyscale and
-    palette images (palette indices), (H, W, C) otherwise, uint8 (16-bit
-    samples keep their high byte, as Pillow's 8-bit modes do)."""
+    """-> (pixels, palette, colour type) of a PNG file (`decode_png`)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "PNG data") -> Tuple[np.ndarray, Optional[np.ndarray], int]:
+    """The bytes of a PNG -> (pixels, palette, colour type). Pixels are (H, W)
+    for greyscale and palette images (palette indices), (H, W, C) otherwise,
+    uint8 (16-bit samples keep their high byte, as Pillow's 8-bit modes
+    do). `path` names the source in errors."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, palette, hdr = 8, [], None, None
@@ -163,7 +184,10 @@ def read_png(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], int]:
 def png_rgb(path: str) -> np.ndarray:
     """A PNG as (H, W, 3) uint8 RGB (Pillow's convert("RGB"): a palette is
     looked up, grey is repeated, alpha is dropped)."""
-    px, palette, ctype = read_png(path)
+    return _rgb(*read_png(path), path)
+
+
+def _rgb(px: np.ndarray, palette: Optional[np.ndarray], ctype: int, path: str) -> np.ndarray:
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
@@ -180,6 +204,10 @@ def png_indices(path: str) -> np.ndarray:
     """A palette or greyscale PNG as (H, W) uint8 indices (Pillow's
     convert("P") on "P" and "L" images)."""
     px, _, ctype = read_png(path)
+    return _indices(px, ctype, path)
+
+
+def _indices(px: np.ndarray, ctype: int, path: str) -> np.ndarray:
     if ctype == 3 or ctype == 0:
         return px
     if ctype == 4:
@@ -314,3 +342,23 @@ def read_rgb(path: str) -> np.ndarray:
     if is_png(path):
         return png_rgb(path)
     return decode_jpegs([path])[0]
+
+
+def decode_rgb(data: bytes) -> np.ndarray:
+    """The bytes of an image file -> (H, W, 3) uint8 RGB, as `read_rgb` reads
+    the file: PNG by its signature, the rest through the JPEG path (whose
+    native loader reads files: the bytes go through a temporary file)."""
+    if data[:8] == PNG_SIGNATURE:
+        return _rgb(*decode_png(data), "PNG data")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "image.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        return decode_jpegs([path])[0]
+
+
+def decode_indices(data: bytes) -> np.ndarray:
+    """The bytes of a palette or greyscale PNG -> (H, W) uint8 indices
+    (`png_indices`)."""
+    px, _, ctype = decode_png(data)
+    return _indices(px, ctype, "PNG data")

@@ -3,7 +3,10 @@
 
 Reference: tracker/model/aggregate.py:6-17 — background = prod(1 - p_i), all
 (bg + N) channels go through a logit transform and a softmax. Padded objects
-contribute p = 0 and get -1e9 logits.
+contribute p = 0 and get -1e9 logits. The clips are `clip`, whose
+gradient at a bound is JAX's (`jnp.clip` is a maximum and a minimum, each
+splitting a tie's gradient in half; `torch.clamp` passes all of it), so a
+trainer differentiates saturated probabilities as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -11,6 +14,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """`jnp.clip(x, lo, hi)`: the values of `torch.clamp`, and half the
+    gradient where x equals a bound."""
+    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 def soft_aggregate(
@@ -32,9 +43,9 @@ def soft_aggregate(
         v = valid.reshape(vshape)
         prob = torch.where(v, prob, torch.zeros((), device=prob.device))
 
-    bg = torch.prod(torch.clamp(1.0 - prob, eps, 1.0), dim=dim, keepdim=True)
+    bg = torch.prod(clip(1.0 - prob, eps, 1.0), dim=dim, keepdim=True)
     stacked = torch.cat([bg, prob], dim=dim)
-    clipped = torch.clamp(stacked, eps, 1.0 - eps)
+    clipped = clip(stacked, eps, 1.0 - eps)
     logits = torch.log(clipped) - torch.log1p(-clipped)
     if v is not None:
         vfull = torch.cat([torch.ones_like(v[:1]), v], dim=dim)

@@ -10,7 +10,11 @@ that a drift of the card over the call shows as a difference between the
 two runs of one side. Every process makes the same inputs from the same
 seeds.
 
-Cases: B3 on vit_h's grids (16 heads, D 80, bf16: rect 36x64 at B 1 and 8,
+Cases: B1 and B2 at DAVIS 480p (chip_smoke.py's phase 2 inputs: Q 1620,
+M 17 200, Ck 64, Cv 512, O 2, k 30, bf16) as the wrapper runs them, and
+`get_similarity` on the same inputs alone (the matrix a tree whose kernels
+stream it computes first; one whose kernels fuse the similarity does not
+call it); B3 on vit_h's grids (16 heads, D 80, bf16: rect 36x64 at B 1 and 8,
 square 64x64, fixed 28x56) as the kernel alone, on the strided q / k / v
 views of the fused projection where the tree's wrapper takes them and on
 contiguous (B * heads, N, D) copies where it takes only those (made before
@@ -136,6 +140,32 @@ def _b3_call(fa, q, k, v, bh, bw, grid):
     return (lambda: fa.flash_attention_relpos(q, k, v, bh, bw, grid)), "strided (B, heads, N, D)"
 
 
+def memory_read_cases(gen) -> dict:
+    from vosesam_tpu_torch.ops.kernels import memory_read as mr
+    from vosesam_tpu_torch.ops.memory_attention import get_similarity
+
+    o, q, ck, cv, k = 2, 1620, 64, 512, 30
+    nl, hw = 1000, 1620
+    m = nl + 10 * hw
+    live_end = nl + 9 * hw
+    mk = torch.randn((m, ck), generator=gen, device="cuda").to(torch.bfloat16)
+    ms = 1.0 + torch.randn((m,), generator=gen, device="cuda") ** 2
+    qk = torch.randn((q, ck), generator=gen, device="cuda").to(torch.bfloat16)
+    qe = torch.sigmoid(torch.randn((q, ck), generator=gen, device="cuda")).to(torch.bfloat16)
+    mv = torch.randn((o, m, cv), generator=gen, device="cuda").to(torch.bfloat16)
+    slot = torch.arange(m, device="cuda")
+    shared = (slot < live_end) & ~((slot >= 800) & (slot < nl))
+    per_obj = torch.stack([slot < live_end,
+                           (slot < 800) | ((slot >= live_end - 3 * hw) & (slot < live_end))])
+    return {
+        "B1 (wrapper)": yardsticks(lambda: mr.fused_memory_read_shared(
+            mk, ms, qk, qe, mv, shared, k, return_usage=True, live_end=live_end)),
+        "B2 (wrapper)": yardsticks(lambda: mr.fused_memory_read(
+            mk, ms, qk, qe, mv, per_obj, k, return_usage=True)),
+        "get_similarity": yardsticks(lambda: get_similarity(mk, ms, qk, qe)),
+    }
+
+
 def b3_cases(gen) -> dict:
     from vosesam_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -205,6 +235,7 @@ def measure(root: str) -> dict:
         raise RuntimeError(f"imported {got}, not the package under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
+    out.update(memory_read_cases(torch.Generator(device="cuda").manual_seed(1)))
     out.update(b3_cases(torch.Generator(device="cuda").manual_seed(2)))
     out.update(encoder_case(torch.Generator(device="cuda").manual_seed(3)))
     out.update(b6_cases(torch.Generator(device="cuda").manual_seed(4)))

@@ -1,5 +1,6 @@
-"""Fused XMem memory read: the similarity, an exact top-k threshold ->
-sparse softmax -> value readout, with the per-slot usage side-output.
+"""Fused XMem memory read: an exact top-k threshold -> sparse softmax ->
+value readout over the (Q, M) similarity, with the per-slot usage
+side-output.
 
 Replaces the Pallas TPU kernels of `vosesam_tpu/ops/pallas/memory_read.py`:
   - `fused_memory_read_shared` (:262): one validity row shared by all
@@ -9,11 +10,10 @@ Replaces the Pallas TPU kernels of `vosesam_tpu/ops/pallas/memory_read.py`:
     over objects.
 Both launch the hand-written CUDA kernel `csrc/memory_read.cu` (its header
 says what bounds it on the H100 and what the design does about it). The
-kernel computes the (Q, M) similarity itself, tile by tile, so it never
-reaches device memory: the wrapper prepares only the query-side operands
-(`similarity_operands`: for bf16 keys, qe * qk split exactly into bf16 hi +
-lo parts for the tensor cores) and the kernel splits mk^2 the same way
-(`square_split` is its torch form).
+input contract is the JAX kernel's: `get_similarity` computes the fp32
+(Q, M) matrix once and the kernels stream it (`kernel_inputs` prepares
+what they read), so the kernels and the plain versions select their top k
+from the same values, for bf16 and fp32 keys alike.
 
 Beside each wrapper is its plain PyTorch version, built from
 `ops/memory_attention.py`. A wrapper takes the plain version only for
@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -98,69 +98,6 @@ def fused_memory_read_plain(
                                    top_k, return_usage=return_usage)
 
 
-# ------------------------------------------------ the kernel's operands
-
-class SimilarityOperands(NamedTuple):
-    """What the kernels rebuild the similarity from:
-    sim = (a . b_m + rb) * cs / sqrt(Ck), b_m = [sq_hi, sq_lo, mk, mk] with
-    sq_hi + sq_lo = mk^2 (`square_split`)."""
-    a: torch.Tensor             # (Q, 4 Ck) bf16: [-qe, -qe, 2 p_hi, 2 p_lo]
-    rb: torch.Tensor            # (Q,) fp32 row term, -sum(qe qk^2) or 0
-    cs: Optional[torch.Tensor]  # (M,) fp32 shrinkage or None
-    mk: torch.Tensor            # (M, Ck) contiguous bf16 keys
-
-
-def bf16_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 x -> bf16 (hi, lo) with hi = bf16(x), lo = bf16(x - hi). Exact
-    (hi + lo == x) when x has at most 16 significant bits, as a product of
-    two bf16 values has."""
-    hi = x.to(torch.bfloat16)
-    return hi, (x - hi.float()).to(torch.bfloat16)
-
-
-def square_split(mk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """mk^2 of bf16 keys as bf16 (hi, lo): the split the kernel makes as each
-    chunk of keys arrives in shared memory."""
-    sq = mk.float() * mk.float()
-    return bf16_split(sq)
-
-
-def similarity_operands(mk, ms, qk, qe) -> SimilarityOperands:
-    """The torch form of the operands the kernels build for bf16 keys and
-    queries with Ck in {16, 32, 48, 64} (the main path): every product of
-    a . b_m is exact in fp32, so the similarity equals `get_similarity` up
-    to fp32 summation order. Other inputs are not tensor-core inputs: the
-    kernels then take `get_similarity`'s similarity."""
-    if not _tensor_cores(mk, qk, qe):
-        raise ValueError("similarity_operands: bf16 keys and queries with Ck in "
-                         "{16, 32, 48, 64} only")
-    e32 = qe.float() if qe is not None else None
-    q32 = qk.float()
-    if qe is not None:
-        p = e32 * q32                                   # exact for bf16 inputs
-        rb = -torch.sum(e32 * q32 * q32, dim=-1)        # -b_sq, as get_similarity
-        p_hi, p_lo = bf16_split(p)
-        a = torch.cat([-qe, -qe, 2 * p_hi, 2 * p_lo], dim=1)
-    else:
-        rb = torch.zeros(qk.shape[0], dtype=torch.float32, device=qk.device)
-        ones = torch.ones_like(qk)
-        a = torch.cat([-ones, -ones, 2 * qk, torch.zeros_like(qk)], dim=1)
-    cs = ms.float().contiguous() if ms is not None else None
-    return SimilarityOperands(a.contiguous(), rb.contiguous(), cs, mk.contiguous())
-
-
-def similarity_from_operands(ops: SimilarityOperands) -> torch.Tensor:
-    """The (Q, M) similarity the kernel computes from `ops`, in fp32
-    matmuls (its order of summation aside)."""
-    mk = ops.mk.float()
-    hi, lo = square_split(ops.mk)
-    b = torch.cat([hi.float(), lo.float(), mk, mk], dim=1)
-    sim = ops.a.float() @ b.T + ops.rb[:, None]
-    if ops.cs is not None:
-        sim = sim * ops.cs[None, :]
-    return sim / math.sqrt(mk.shape[-1])
-
-
 # ------------------------------------------------------------------ the kernel
 
 def _lib() -> ctypes.CDLL:
@@ -170,8 +107,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.vosesam_memory_read
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, p, p, i, p, p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, i, p, p, p, p, p, p, p, p, p,
+                       i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -185,19 +122,17 @@ ENTRIES = 16   # admitted entries a (row, warp) list keeps before it is flushed
 MAX_SPLITS = 8
 
 
-def occupancy(kernel: str, tensor_cores: bool = True, ck: int = 64,
-              mv_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+def occupancy(kernel: str, mv_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
     """Registers, shared memory and resident blocks per SM of one of the
-    kernels (`KERNELS`; select / apply at the instance the arguments pick,
-    "_2": two validity rows per block, the per-object mode), as the card
-    reports them."""
+    kernels (`KERNELS`; "_2": two validity rows per block, the per-object
+    mode) with bf16 or fp32 values, as the card reports them."""
     fn = _lib().vosesam_memory_read_occupancy
     if fn.argtypes is None:
         i = ctypes.c_int
-        fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
         fn.restype = i
     info = (ctypes.c_int * len(OCCUPANCY_KEYS))()
-    rc = fn(int(tensor_cores), ck, int(mv_dtype == torch.bfloat16), KERNELS.index(kernel), info)
+    rc = fn(int(mv_dtype == torch.bfloat16), KERNELS.index(kernel), info)
     if rc != 0:
         raise RuntimeError(f"memory_read occupancy query failed: CUDA error {rc}")
     return dict(zip(OCCUPANCY_KEYS, info))
@@ -223,10 +158,10 @@ def splits_for(q: int, groups: int, live_end: int, slots: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _slots(index: Optional[int], tensor_cores: bool, ck: int, mv_bf16: bool, pair: bool) -> int:
+def _slots(index: Optional[int], mv_bf16: bool, pair: bool) -> int:
     """Blocks of the select and apply kernels the card keeps resident at once."""
     mv_dtype = torch.bfloat16 if mv_bf16 else torch.float32
-    per_sm = min(occupancy(k + ("_2" if pair else ""), tensor_cores, ck, mv_dtype)["blocks_per_sm"]
+    per_sm = min(occupancy(k + ("_2" if pair else ""), mv_dtype)["blocks_per_sm"]
                  for k in ("select", "apply"))
     return max(1, per_sm) * _sm_count(index)
 
@@ -255,13 +190,6 @@ def _check_inputs(fn: str, mk, ms, qk, qe, mv, valid, valid_shape) -> None:
         raise ValueError(f"{fn}: no kernel for device {dev}")
 
 
-def _tensor_cores(mk, qk, qe) -> bool:
-    bf16 = torch.bfloat16
-    ck = mk.shape[-1]
-    return (mk.dtype == bf16 and qk.dtype == bf16 and (qe is None or qe.dtype == bf16)
-            and ck % 16 == 0 and ck <= 64)
-
-
 def _workspace(dev, parts) -> Dict[str, torch.Tensor]:
     """Views of one uint8 allocation (4-byte types), each part 256-byte aligned."""
     sizes = [4 * math.prod(shape) for _, shape, _ in parts]
@@ -271,29 +199,24 @@ def _workspace(dev, parts) -> Dict[str, torch.Tensor]:
             for (name, shape, dtype), off, n in zip(parts, offsets, sizes)}
 
 
-def _launch(mk, ms, qk, qe, valid_rows, mv, k: int, live_end: int, shared: bool,
-            usage_scale: float, return_usage: bool):
-    """Run csrc/memory_read.cu; returns (out, usage). With bf16 keys the
-    kernels build the operands of `similarity_operands` themselves from qk /
-    qe / mk; other inputs (the fp32 checks) hand them `get_similarity`'s
-    similarity, so that the kernels and the plain chain select from the same
-    values."""
+def kernel_inputs(mk, ms, qk, qe, valid_rows) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the kernels read besides the values: `get_similarity`'s (Q, M)
+    fp32 matrix, contiguous, for every key and query dtype (the same values
+    the plain versions select from), and the (R, M) validity rows as uint8."""
+    sim = get_similarity(mk, ms, qk, qe).contiguous()
+    return sim, valid_rows.contiguous().view(torch.uint8)
+
+
+def _launch(sim, valid_u8, mv, k: int, live_end: int, shared: bool, usage_scale: float,
+            return_usage: bool):
+    """Run csrc/memory_read.cu on `kernel_inputs`' (sim, valid_u8); returns
+    (out, usage)."""
     o, m, cv = mv.shape
-    q = qk.shape[0]
-    r = valid_rows.shape[0]
+    q = sim.shape[0]
+    r = valid_u8.shape[0]
     dev = mv.device
-    tc = _tensor_cores(mk, qk, qe)
-    sim = None
-    if tc:
-        mk, qk = mk.contiguous(), qk.contiguous()
-        qe = qe.contiguous() if qe is not None else None
-        if mk.data_ptr() % 16:                 # the kernel's 16-byte copies
-            mk = mk.clone()
-    else:
-        sim = get_similarity(mk, ms, qk, qe).contiguous()
-    cs = ms.float().contiguous() if ms is not None and tc else None
     groups = _row_groups(r, shared)
-    slots = _slots(dev.index, tc, mk.shape[1], mv.dtype == torch.bfloat16, groups < r)
+    slots = _slots(dev.index, mv.dtype == torch.bfloat16, groups < r)
     splits = splits_for(q, groups, live_end, slots)
     n_feat = (o if shared else 1) * cv
     f32 = dict(dtype=torch.float32, device=dev)
@@ -313,18 +236,12 @@ def _launch(mk, ms, qk, qe, valid_rows, mv, k: int, live_end: int, shared: bool,
         ("rpart", (r, splits, q, WARPS, n_feat), torch.float32)])
     lists, ecount, eslot, eaff, rflag, upart, rpart = (
         ws[k] for k in ("lists", "ecount", "eslot", "eaff", "rflag", "upart", "rpart"))
-    valid_u8 = valid_rows.contiguous().view(torch.uint8)
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
     rc = _lib().vosesam_memory_read(
-        qk.data_ptr(), ptr(qe), mk.data_ptr(), ptr(sim), ptr(cs), int(tc),
-        valid_u8.data_ptr(), mv.data_ptr(), int(mv.dtype == torch.bfloat16),
+        sim.data_ptr(), valid_u8.data_ptr(), mv.data_ptr(), int(mv.dtype == torch.bfloat16),
         out.data_ptr(), lists.data_ptr(), ecount.data_ptr(), eslot.data_ptr(), eaff.data_ptr(),
-        rpart.data_ptr(), rflag.data_ptr(),
-        upart.data_ptr(), ptr(usage), q, m, mk.shape[1], live_end, o, cv, k, r, int(shared),
-        splits, float(usage_scale), torch.cuda.current_stream(dev).cuda_stream,
+        rpart.data_ptr(), rflag.data_ptr(), upart.data_ptr(),
+        usage.data_ptr() if usage is not None else None, q, m, live_end, o, cv, k, r,
+        int(shared), splits, float(usage_scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"memory_read kernel launch failed: CUDA error {rc}")
@@ -356,8 +273,8 @@ def fused_memory_read_shared(
     if m == 0:
         usage = torch.zeros((0,), device=mv.device) if return_usage else None
         return torch.zeros((o, qk.shape[0], mv.shape[-1]), device=mv.device), usage
-    out, usage = _launch(mk, ms, qk, qe, valid[None], mv, k, live, True, float(o),
-                         return_usage)
+    out, usage = _launch(*kernel_inputs(mk, ms, qk, qe, valid[None]), mv, k, live, True,
+                         float(o), return_usage)
     COUNTS["fused_memory_read_shared"] += 1
     return out, usage
 
@@ -383,6 +300,7 @@ def fused_memory_read(
     if m == 0 or o == 0:
         usage = torch.zeros((m,), device=mv.device) if return_usage else None
         return torch.zeros((o, qk.shape[0], mv.shape[-1]), device=mv.device), usage
-    out, usage = _launch(mk, ms, qk, qe, valid, mv, k, m, False, 1.0, return_usage)
+    out, usage = _launch(*kernel_inputs(mk, ms, qk, qe, valid), mv, k, m, False, 1.0,
+                         return_usage)
     COUNTS["fused_memory_read"] += 1
     return out, usage

@@ -95,7 +95,7 @@ def memory_read_phases(gen: torch.Generator) -> Dict[str, dict]:
     try:
         for name, (fn, live, r) in runs.items():
             groups = mr._row_groups(r, r == 1)
-            slots = mr._slots(0, True, ck, True, groups < r)
+            slots = mr._slots(0, True, groups < r)
             splits = mr.splits_for(q, groups, live, slots)
             device = device_ms(fn, calls=10)
             fn()
