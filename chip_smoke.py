@@ -49,12 +49,20 @@ Phases (each one that fails exits non-zero):
      convolution; B 2; Cin 32 / 64 / 8; integer and far-out-of-field
      offsets; bad inputs raise; torch.profiler device times beside the bound
      (no single PyTorch call computes the function);
+  2g. (after 2d) B6's backward kernel against `deform_patches_backward_plain`
+     at the trainer's (1, 60, 108, 256) field, 16 groups, offsets of the
+     model's form, radius None / 16 (equal) / firing 6, B 2, Cin 32 / 64 /
+     8, integer and far-out-of-field offsets: grad_offset and grad_mask
+     bit-equal over two calls and within 5e-5 of plain, grad_x (fp32
+     atomics) within 1e-4 per element and 1e-5 of its norm; through the
+     autograd Function; device time beside the bound, occupancy;
   2e. kernel vs plain for B7 (the bin-scan probe) at the probe's shapes and
      small odd ones, then the probe's own run, counted from 0: the card's
      multiply-add rate in the scan and the scan's projected time per
      alignment call beside B6's;
-  2f. each kernel entry point (B1, B2, B3, B4, B5, B6, B7) raises under
-     grad mode for an input that requires grad, and runs under no_grad;
+  2f. each forward-only kernel entry point (B1, B2, B3, B4, B5, B7) raises
+     under grad mode for an input that requires grad, B6 returns a result
+     with a grad_fn, and all run under no_grad;
   3. XMem end to end: `TrackingAnything` (XMem-s012 widths, default
      MemoryConfig, bf16, no refinement) tracks a 64-frame 480x854 clip with
      two objects seeded on frame 0 and a third added on frame 40;
@@ -120,9 +128,18 @@ Phases (each one that fails exits non-zero):
      memory; at toy dims with TF32 off, one step on the card against the
      same step on the CPU and grad_accum 2 against the full batch; a card
      checkpoint reloads.
+  12. the E2FGVI GAN trainer: `InpainterConfig()` (E2FGVI-HQ, 8 focal
+     blocks), T 8 (5 local + 3 non-local) at 240x432 from
+     `InpaintClipSampler` on a synthetic 480x854 tree, remat, fp32 (TF32
+     convolutions), offset heads randomised as in phase 8, 5 steps: finite
+     losses, both networks move, u / v unit vectors, per step 16 B6 forward
+     launches (the forward and remat's recompute) and 8 backward launches,
+     no plain call; ms per step and peak memory; at toy dims with TF32
+     off, one step's gradients on the card against the CPU's.
 Kernel launch counts are set to 0 right before each main-path run (phases
-3, 5, 7, 8, 9 and 10) and read right after; the `kernels` line sums them
-(B7, a probe on no product path, counts its own run in phase 2e).
+3, 5, 7, 8, 9, 10 and each step of 12) and read right after; the `kernels`
+line sums them (B7, a probe on no product path, counts its own run in
+phase 2e; B6's backward counts phase 12's steps).
 The last two lines are the `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -1256,6 +1273,144 @@ def phase_deform_kernel(torch):
     return kernel, cases
 
 
+# -------------------------------------- B6-bwd (the sampling's gradient)
+
+# grad_offset / grad_mask, kernel vs plain: sums of cg products of O(1) in
+# another order (the kernel walks the channels one by one, torch reduces
+# them its own way), at most cg * 2^-24 * sum |terms| ~ 1e-5 at cg 16;
+# 5x that
+DEFORM_BWD_TOL = 5e-5
+# grad_x, kernel vs plain: fp32 atomics add each pixel's ~36 contributions
+# in an order that changes from call to call (and differs from the plain
+# scatter's): per element, and over the norm of the plain gradient
+DEFORM_BWD_X_TOL = 1e-4
+DEFORM_BWD_X_REL = 1e-5
+
+
+def _deform_bwd_bound(b, h, w, cin, g):
+    """Each input read once (the patches' gradient, x, offsets, mask), the
+    three gradients written once; ~40 fp32 operations per patch value (the
+    blend recomputed, eight weight-gradient products and sums, the mask's,
+    four corner gradients)."""
+    bytes_moved = 4 * b * h * w * (9 * cin + cin + 3 * g * 9 + cin + 3 * g * 9)
+    flops = 40 * b * h * w * 9 * cin
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_deform_backward(torch):
+    """B6's backward kernel against `deform_patches_backward_plain` (TF32
+    off, as phase 1 set it) at the trainer's shape (1, 60, 108, 256), 16
+    groups, offsets of the model's form, radius None / 16 (equal to None) /
+    firing 6, B 2, Cin 32 / 64 / 8, integer and far-out-of-field offsets:
+    grad_offset and grad_mask bit-equal over two calls and within
+    DEFORM_BWD_TOL of plain, grad_x within DEFORM_BWD_X_TOL per element and
+    DEFORM_BWD_X_REL of its norm; the autograd Function launches it; device
+    time beside the bound and the occupancy."""
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h, w, cin, g = 60, 108, 256, 16
+    cases = []
+
+    def compare(name, x, off, msk, radius, gp=None):
+        if gp is None:
+            gp = torch.randn((*x.shape[:3], 9, x.shape[-1]), generator=gen, device="cuda")
+        got = da._backward_kernel(gp, x, off, msk, radius)
+        again = da._backward_kernel(gp, x, off, msk, radius)
+        torch.cuda.synchronize()
+        want = da.deform_patches_backward_plain(gp, x, off, msk, radius)
+        for what, a, ref in zip(("grad_x", "grad_offset", "grad_mask"), got, want):
+            check(a.shape == ref.shape and bool(torch.isfinite(a).all()),
+                  f"B6-bwd {name}: {what} {tuple(a.shape)}, finite {bool(torch.isfinite(a).all())}")
+        check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+              f"B6-bwd {name}: grad_offset / grad_mask differ between two calls")
+        err = {k: (a - ref).abs().max().item() if a.numel() else 0.0
+               for k, a, ref in zip(("grad_x", "grad_offset", "grad_mask"), got, want)}
+        norm = float(want[0].norm())
+        x_rel = float((got[0] - want[0]).norm()) / max(norm, 1e-30)
+        check(err["grad_offset"] <= DEFORM_BWD_TOL and err["grad_mask"] <= DEFORM_BWD_TOL,
+              f"B6-bwd {name}: {err} > {DEFORM_BWD_TOL}")
+        check(err["grad_x"] <= DEFORM_BWD_X_TOL and x_rel <= DEFORM_BWD_X_REL,
+              f"B6-bwd {name}: grad_x err {err['grad_x']} (tol {DEFORM_BWD_X_TOL}), "
+              f"{x_rel} of the norm (tol {DEFORM_BWD_X_REL})")
+        cases.append(dict(case=name, shape=list(x.shape), groups=msk.shape[-1] // 9,
+                          radius=radius, max_abs_err=err, grad_x_err_over_norm=x_rel,
+                          grad_x_bitequal_over_two_calls=torch.equal(got[0], again[0])))
+        return got
+
+    x, off, msk = _deform_case(torch, gen, 1, h, w, cin, g, flow_px=4.0)
+    gp = torch.randn((1, h, w, 9, cin), generator=gen, device="cuda")
+    got_none = compare("production radius None", x, off, msk, None, gp)
+    got_16 = compare("production radius 16", x, off, msk, 16, gp)
+    check(torch.equal(got_none[1], got_16[1]) and torch.equal(got_none[2], got_16[2]),
+          "B6-bwd: radius 16 differs from the unbounded gradient although every corner fits")
+    xl, offl, mskl = _deform_case(torch, gen, 1, h, w, cin, g, flow_px=9.0)
+    compare("large flows radius None", xl, offl, mskl, None)
+    compare("large flows radius 6", xl, offl, mskl, 6)
+    compare("B 2", *_deform_case(torch, gen, 2, h, w, cin, g, 4.0), None)
+    compare("B 2 radius 6", *_deform_case(torch, gen, 2, h, w, cin, g, 9.0), 6)
+    compare("Cin 32 (cg 2)", *_deform_case(torch, gen, 1, 23, 37, 32, 16, 4.0), None)
+    compare("Cin 64 (cg 4) radius 3", *_deform_case(torch, gen, 2, 23, 37, 64, 16, 4.0), 3)
+    compare("G 2, Cin 8", *_deform_case(torch, gen, 1, 9, 11, 8, 2, 2.0), None)
+    xi, offi, mski = _deform_case(torch, gen, 1, h, w, cin, g, 0.0)
+    offi = torch.round(offi / 2.0)
+    compare("integer offsets", xi, offi, mski, None)
+    compare("integer offsets radius 3", xi, offi, mski, 3)
+    for far in (-1000.0, 1000.0):
+        gx, _, gm = compare(f"offsets {far}", x, off + far, msk, None)
+        check(not gx.any() and not gm.any(), f"B6-bwd: offsets {far} outside the field: "
+                                             f"non-zero grad_x or grad_mask")
+    # through autograd: the Function's backward is the kernel
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, off, msk)]
+    da.reset_counts()
+    out = da.deform_patches_bounded(*leaves)
+    check(out.grad_fn is not None, "B6: no grad_fn under grad mode")
+    gp = torch.randn(out.shape, generator=gen, device="cuda")
+    out.backward(gp)
+    counts = dict(da.COUNTS)
+    check(counts["deform_patches_bounded"] == 1 and counts["deform_patches_backward"] == 1
+          and counts["plain"] == 0 and counts["plain_backward"] == 0,
+          f"B6 autograd: counts {counts}")
+    want = da.deform_patches_backward_plain(gp, x, off, msk)
+    for what, leaf, ref, tol in zip(("grad_x", "grad_offset", "grad_mask"), leaves, want,
+                                    (DEFORM_BWD_X_TOL, DEFORM_BWD_TOL, DEFORM_BWD_TOL)):
+        e = (leaf.grad - ref).abs().max().item()
+        check(e <= tol, f"B6 autograd: {what} differs from the plain backward by {e}")
+    worst = {k: max(c["max_abs_err"][k] for c in cases)
+             for k in ("grad_x", "grad_offset", "grad_mask")}
+    log(f"[B6-bwd] radius None / 16 (equal) / firing 6, B 2, Cin 32 / 64 / 8, integer and far "
+        f"offsets, through autograd: ok; worst errors {worst}, grad_x over its norm "
+        f"{max(c['grad_x_err_over_norm'] for c in cases):.3g}; grad_x bit-equal over two "
+        f"calls in {sum(c['grad_x_bitequal_over_two_calls'] for c in cases)} of {len(cases)} "
+        f"cases")
+    OCCUPANCY["deform_align_backward"] = {f"vec {v}": da.backward_occupancy(v) for v in (4, 1)}
+    for inst, occ in OCCUPANCY["deform_align_backward"].items():
+        log(f"[B6-bwd] occupancy {inst}: {json.dumps(occ)}")
+
+    ms = device_ms(torch, lambda: da._backward_kernel(gp, x, off, msk, None))
+    event_ms = time_ms(torch, lambda: da._backward_kernel(gp, x, off, msk, None))
+    plain_ms = device_ms(torch, lambda: da.deform_patches_backward_plain(gp, x, off, msk),
+                         calls=5)
+    bound_ms, bound_by = _deform_bwd_bound(1, h, w, cin, g)
+    log(f"[B6-bwd] 60x108x256, G 16: kernel {ms:.4f} ms device (grad_x's zero fill included; "
+        f"one call by CUDA events {event_ms:.3f}), plain {plain_ms:.3f}, bound {bound_ms:.4f} "
+        f"({bound_by}), {bound_ms / ms:.1%} of it; no library call computes it")
+    kernel = dict(name="deform_patches_backward", route="cuda",
+                  source="vosesam_tpu_torch/csrc/deform_align.cu",
+                  replaces="vosesam_tpu/ops/pallas/deform_align.py:210 (no TPU kernel: "
+                           "JAX differentiates the gather form)",
+                  max_abs_err=max(worst.values()), max_abs_err_by_output=worst, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                  event_ms=event_ms, timed_by="torch.profiler device time",
+                  tolerances=dict(grad_offset_mask=DEFORM_BWD_TOL, grad_x=DEFORM_BWD_X_TOL,
+                                  grad_x_over_norm=DEFORM_BWD_X_REL),
+                  shape="x (1, 60, 108, 256) fp32, 16 groups, radius None")
+    da.reset_counts()
+    return kernel, cases
+
+
 # ----------------------------------------------------- B7 (bin-scan probe)
 
 BINSCAN_TOL = 1e-5   # fused multiply-adds against rounded products, <= 18 terms of O(1)
@@ -1337,9 +1492,11 @@ def phase_binscan_probe(torch):
 # ------------------------------------- C23: no gradient through a kernel
 
 def phase_grad_refusal(torch):
-    """Each kernel wrapper computes a forward pass only: on the card it must
-    raise under grad mode for an input that requires grad (and run under
-    torch.no_grad()), rather than return a result without a gradient."""
+    """B1-B5 and B7 compute forward passes only: on the card each must raise
+    under grad mode for an input that requires grad (and run under
+    torch.no_grad()), rather than return a result without a gradient. B6
+    has a backward kernel: under grad mode it returns a result with a
+    grad_fn."""
     from vosesam_tpu_torch.ops.kernels import binscan_probe as bp
     from vosesam_tpu_torch.ops.kernels import deform_align as da
     from vosesam_tpu_torch.ops.kernels import flash_attention as fa
@@ -1371,19 +1528,26 @@ def phase_grad_refusal(torch):
             with_grad = dict(args, **{which: leaf})
         else:
             with_grad = tuple(leaf if i == which else x for i, x in enumerate(args))
-        try:
-            fn(with_grad)
-        except RuntimeError as e:
-            check("no backward" in str(e), f"{name}: raised {e!r}")
+        if name == "deform_patches_bounded":
+            out = fn(with_grad)
+            check(out.grad_fn is not None and out.requires_grad,
+                  "deform_patches_bounded: no grad_fn under grad mode")
         else:
-            raise SmokeFailure(f"{name}: returned a result without a gradient under grad mode")
+            try:
+                fn(with_grad)
+            except RuntimeError as e:
+                check("no backward" in str(e), f"{name}: raised {e!r}")
+            else:
+                raise SmokeFailure(f"{name}: returned a result without a gradient under "
+                                   f"grad mode")
         with torch.no_grad():
             fn(with_grad)
     torch.cuda.synchronize()
     for mod in (bp, da, fa, mr, wa):
         mod.reset_counts()
-    log(f"[C23] each of {len(calls)} kernel entry points raises under grad mode for an input "
-        f"that requires grad, and runs under torch.no_grad(): ok")
+    log(f"[C23] each of {len(calls) - 1} forward-only kernel entry points raises under grad "
+        f"mode for an input that requires grad, B6 returns a result with a grad_fn, and all "
+        f"{len(calls)} run under torch.no_grad(): ok")
     return sorted(calls)
 
 
@@ -1941,17 +2105,21 @@ def phase_inpaint(torch, n_frames: int = 24, n_long: int = 64):
     valid = torch.arange(len(plan[0]), device="cuda") < plan[2]
     window = padded.index_select(0, idx)
     da.reset_counts()
-    out_k, (ff, fb) = G.generator_forward(drv.net, window, plan[1], drv.cfg, frame_valid=valid)
-    window_ms = time_ms(torch, lambda: G.generator_forward(drv.net, window, plan[1], drv.cfg,
-                                                           frame_valid=valid), reps=3, warmup=0)
+    # inference: no graph (generator_forward is differentiable since the trainer)
+    with torch.no_grad():
+        out_k, (ff, fb) = G.generator_forward(drv.net, window, plan[1], drv.cfg,
+                                              frame_valid=valid)
+        window_ms = time_ms(torch, lambda: G.generator_forward(
+            drv.net, window, plan[1], drv.cfg, frame_valid=valid), reps=3, warmup=0)
     kernel_counts = dict(da.COUNTS)
     kernel_sampler = M.deform_patches_bounded
     M.deform_patches_bounded = da.deform_patches_plain
     try:
         da.reset_counts()
-        out_p, _ = G.generator_forward(drv.net, window, plan[1], drv.cfg, frame_valid=valid)
-        plain_window_ms = time_ms(torch, lambda: G.generator_forward(
-            drv.net, window, plan[1], drv.cfg, frame_valid=valid), reps=2, warmup=0)
+        with torch.no_grad():
+            out_p, _ = G.generator_forward(drv.net, window, plan[1], drv.cfg, frame_valid=valid)
+            plain_window_ms = time_ms(torch, lambda: G.generator_forward(
+                drv.net, window, plan[1], drv.cfg, frame_valid=valid), reps=2, warmup=0)
         plain_counts = dict(da.COUNTS)
     finally:
         M.deform_patches_bounded = kernel_sampler
@@ -2528,6 +2696,187 @@ def phase_train(torch, card: str, n_steps: int = 5):
     return out
 
 
+# ------------------------------------------ the E2FGVI GAN trainer (A12)
+
+# card vs CPU at toy dims, the losses: fp32 convolutions (cuDNN's with TF32
+# off against the CPU's) summed in another order
+INPAINT_TRAIN_LOSS_REL = 1e-4
+# card vs CPU, the gradients per leaf: ||g_card - g_cpu|| over ||g_cpu||.
+# The CPU test against JAX measured fp32 rounding at up to 2e-3 of the
+# encoder's last leaves in either framework (tests/test_torch_inpaint_
+# training.py); here also cuDNN's algorithms and B6's atomics
+INPAINT_TRAIN_GRAD_REL = 5e-3
+INPAINT_TRAIN_GRAD_REL_MOST = 1e-4   # ... on >= 90% of the leaves
+
+
+def _converge_sn(torch, disc) -> None:
+    """Spectral norm's u and v after 200 power iterations, as a trained
+    discriminator keeps them: a fresh random pair underestimates sigma, and
+    the hinge logits then reach 1e8, where the generator's gradient is the
+    adversarial term's rounding."""
+    from vosesam_tpu_torch.models.e2fgvi import discriminator as D
+
+    for layer in disc.conv:
+        if isinstance(layer, D.SNConv3d):
+            _, layer.weight_u, layer.weight_v = D.spectral_normalize(
+                layer.weight_orig.detach(), layer.weight_u, layer.weight_v, update=True,
+                n_power_iterations=200)
+
+
+def _inpaint_toy_step(torch, dev, seed: int = 21):
+    """One GAN step's gradients and losses at toy dims (T 3, 48x48, 2 local
+    frames, one focal block) from the same seeded weights on `dev`."""
+    from vosesam_tpu_torch.config import InpainterConfig
+    from vosesam_tpu_torch.models.e2fgvi import discriminator as D
+    from vosesam_tpu_torch.models.e2fgvi import generator as G
+    from vosesam_tpu_torch.training import inpaint_trainer as IT
+
+    cfg = InpainterConfig(num_blocks=1)
+    gen = G.generator_init(cfg, seed=seed, device="cpu")
+    r = np.random.default_rng(seed)
+    with torch.no_grad():
+        for align in gen.feat_prop_module.deform_align.values():
+            last = align.conv_offset[6]
+            last.weight.copy_(torch.from_numpy(
+                (0.02 * r.standard_normal(last.weight.shape)).astype(np.float32)))
+            last.bias.copy_(torch.from_numpy(
+                (0.1 * r.standard_normal(last.bias.shape)).astype(np.float32)))
+    disc = D.discriminator_init(seed=seed, device="cpu")
+    _converge_sn(torch, disc)
+    state = IT.init_train_state(gen.to(dev), disc.to(dev))
+    frames = r.uniform(-1, 1, (3, 48, 48, 3)).astype(np.float32)
+    masks = np.zeros((3, 48, 48, 1), np.float32)
+    masks[:, 12:30, 10:36] = 1.0
+    batch = [torch.from_numpy(a).to(dev) for a in (frames, masks)]
+    gg, dg, metrics = IT.step_gradients(state, *batch, 2, cfg, IT.InpaintTrainConfig())
+    grads = {f"gen.{k}": v.cpu() for k, v in gg.items()}
+    grads.update({f"disc.{k}": v.cpu() for k, v in dg.items()})
+    return grads, {k: float(v) for k, v in metrics.items()}
+
+
+def phase_inpaint_train(torch, card: str, n_steps: int = 5):
+    """The E2FGVI GAN trainer on the card at full width: `InpainterConfig()`
+    (E2FGVI-HQ, 8 focal blocks), T 8 (5 local + 3 non-local) at 240x432,
+    remat on, fp32 at PyTorch's default precision (TF32 convolutions), clips
+    from `InpaintClipSampler` on a synthetic 480x854 tree, the offset heads
+    randomised as in phase 8; `n_steps` steps with finite losses, both
+    networks moved, u and v unit vectors; per step, counted from 0, B6
+    forward launches 4 x (num_local - 1) (the forward and remat's
+    recompute) and 2 x (num_local - 1) backward launches, no plain call; ms
+    per step on the host clock (ending in a synchronise) and peak memory.
+    Then, at toy dims with TF32 off and deterministic cuDNN, one step's
+    gradients on the card (the kernels) against the same step on the CPU
+    (the plain versions)."""
+    import tempfile
+
+    from vosesam_tpu_torch.config import InpainterConfig
+    from vosesam_tpu_torch.eval import synthetic
+    from vosesam_tpu_torch.eval.datasets import DavisDataset
+    from vosesam_tpu_torch.models.e2fgvi import discriminator as D
+    from vosesam_tpu_torch.models.e2fgvi import generator as G
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+    from vosesam_tpu_torch.training import inpaint_trainer as IT
+    from vosesam_tpu_torch.training.inpaint_data import InpaintClipSampler
+
+    out = dict(card=card)
+    cfg = InpainterConfig()
+    tcfg = IT.InpaintTrainConfig()
+    num_local = 5
+    gen = G.generator_init(cfg, seed=0, device="cuda")
+    _randomise_offset_heads(torch, gen, seed=14)
+    disc = D.discriminator_init(seed=1, device="cuda")
+    state = IT.init_train_state(gen, disc, tcfg)
+    watch = {"gen.encoder.layers.0.weight": gen.encoder.layers[0].weight,
+             "gen.feat_prop_module.deform_align.forward_.weight":
+                 gen.feat_prop_module.deform_align["forward_"].weight,
+             "gen.feat_prop_module.deform_align.forward_.conv_offset.6.weight":
+                 gen.feat_prop_module.deform_align["forward_"].conv_offset[6].weight,
+             "disc.conv.0.weight_orig": disc.conv[0].weight_orig,
+             "disc.conv.10.weight": disc.conv[10].weight}
+    before = {k: v.detach().clone() for k, v in watch.items()}
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    with tempfile.TemporaryDirectory(prefix="vosesam_inpaint_train_") as tmp:
+        synthetic.write_tree(tmp, 480, 854, seed=10, davis_frames=16, long_frames=2,
+                             lvos_frames=1, ovis_frames=2)
+        sampler = InpaintClipSampler(DavisDataset(os.path.join(tmp, "DAVIS"), "2017/val.txt"),
+                                     num_local=num_local, num_nonlocal=3, size=(240, 432),
+                                     seed=0)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, metrics, counts = [], [], []
+            for _ in range(n_steps):
+                frames, masks, nl = sampler.sample()
+                da.reset_counts()
+                t = time.perf_counter()
+                batch = [torch.from_numpy(a).cuda() for a in (frames, masks)]
+                state, m = IT.train_step(state, *batch, nl, cfg, tcfg)
+                metrics.append({k: float(v) for k, v in m.items()})
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                counts.append(dict(da.COUNTS))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow_tf32
+    check(frames.shape == (8, 240, 432, 3) and masks.shape == (8, 240, 432, 1),
+          f"inpaint train: clip {frames.shape} {masks.shape}")
+    check(all(np.isfinite(v) for m in metrics for v in m.values()),
+          f"inpaint train: non-finite metrics {metrics}")
+    want = {"deform_patches_bounded": 4 * (num_local - 1),
+            "deform_patches_backward": 2 * (num_local - 1), "plain": 0, "plain_backward": 0}
+    check(all(c == want for c in counts), f"inpaint train: B6 counts per step {counts}, "
+                                          f"expected {want}")
+    moved = {k: float((watch[k].detach() - before[k]).abs().max()) for k in watch}
+    check(all(v > 0 for v in moved.values()), f"inpaint train: weights did not move {moved}")
+    norms = [float(layer.weight_u.norm()) for layer in disc.conv if isinstance(layer, D.SNConv3d)]
+    norms += [float(layer.weight_v.norm()) for layer in disc.conv
+              if isinstance(layer, D.SNConv3d)]
+    check(all(abs(n - 1.0) <= 1e-4 for n in norms), f"inpaint train: u / v norms {norms}")
+    check(state.it == n_steps and state.gen_opt.count == n_steps, "inpaint train: step count")
+    ms = statistics.median(times[1:])
+    out.update(steps=n_steps, step_ms=times, ms_per_step=ms, peak_mem_gib=peak,
+               metrics=metrics, launches_per_step=counts[-1], moved=moved,
+               launches={k: sum(c[k] for c in counts) for k in want})
+    log(f"[inpaint train] {card}; E2FGVI-HQ GAN (8 blocks, T 8 = 5 + 3, 240x432, remat, fp32, "
+        f"TF32 convolutions): {ms:.1f} ms per step (steps 2-{n_steps}, median; "
+        f"{[round(x, 1) for x in times]}), peak {peak:.2f} GiB; B6 per step {counts[-1]}; "
+        f"last losses {json.dumps(metrics[-1])}")
+    del state, gen, disc, watch, before
+    torch.cuda.empty_cache()
+
+    # toy dims: one step's gradients, card (the kernels) vs CPU (plain)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        g_cpu, m_cpu = _inpaint_toy_step(torch, "cpu")
+        da.reset_counts()
+        g_card, m_card = _inpaint_toy_step(torch, "cuda")
+        toy_counts = dict(da.COUNTS)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(toy_counts["deform_patches_backward"] == 2 and toy_counts["plain_backward"] == 0,
+          f"inpaint train toy: counts {toy_counts}")
+    loss_rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6) for k in m_cpu}
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g_cpu.values())))
+    rel = {k: float((g_card[k] - g).norm()) / max(float(g.norm()), 1e-6 * total)
+           for k, g in g_cpu.items()}
+    worst = max(rel, key=rel.get)
+    most = float(np.mean([r <= INPAINT_TRAIN_GRAD_REL_MOST for r in rel.values()]))
+    res = dict(losses_card=m_card, losses_cpu=m_cpu, worst_loss_rel=max(loss_rel.values()),
+               worst_leaf=worst, worst_leaf_rel=rel[worst], share_within_most=most,
+               median_leaf_rel=float(np.median(list(rel.values()))), grad_norm=total)
+    log(f"[inpaint train] one step at toy dims, card vs CPU: {json.dumps(res)}")
+    check(max(loss_rel.values()) <= INPAINT_TRAIN_LOSS_REL,
+          f"inpaint train toy: losses {m_card} vs {m_cpu}")
+    check(rel[worst] <= INPAINT_TRAIN_GRAD_REL,
+          f"inpaint train toy: {worst} differs by {rel[worst]} of its norm")
+    check(most >= 0.9, f"inpaint train toy: only {most} of the leaves within "
+                       f"{INPAINT_TRAIN_GRAD_REL_MOST}")
+    out["card_vs_cpu"] = res
+    return out
+
+
 def _profile_frames(torch, step, n_prof: int):
     """torch.profiler over `n_prof` calls of step(i): device time by kernel
     and the device's busy share of the window."""
@@ -2564,7 +2913,8 @@ def phase_profile(torch, n_warm: int = 12, n_prof: int = 8):
     """Not part of the default run. torch.profiler over steady frames of
     (a) the XMem-only step (bf16, shared-validity read) and (b) the main
     path (phase 5's config, per-frame `Tracker.track` with refinement) with
-    the default windowed impl and again with the window kernel."""
+    the default windowed impl and again with the window kernel; then one
+    inpaint window (TF32 on and off) and phase 12's GAN training step."""
     from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
 
     h, w = 480, 854
@@ -2602,6 +2952,30 @@ def phase_profile(torch, n_warm: int = 12, n_prof: int = 8):
         finally:
             torch.backends.cudnn.allow_tf32 = False
     del drv, padded
+    torch.cuda.empty_cache()
+    # one GAN training step of phase 12's recipe (full width, T 8 = 5 + 3,
+    # TF32 convolutions) per profiled step: "per frame" below reads "per step"
+    from vosesam_tpu_torch.config import InpainterConfig
+    from vosesam_tpu_torch.models.e2fgvi import discriminator as D
+    from vosesam_tpu_torch.models.e2fgvi import generator as G
+    from vosesam_tpu_torch.training import inpaint_trainer as IT
+
+    gen = G.generator_init(device="cuda")
+    _randomise_offset_heads(torch, gen, seed=14)
+    state = IT.init_train_state(gen, D.discriminator_init(seed=1, device="cuda"))
+    r = np.random.default_rng(15)
+    fr = torch.from_numpy(r.uniform(-1, 1, (8, 240, 432, 3)).astype(np.float32)).cuda()
+    mk = torch.zeros((8, 240, 432, 1), device="cuda")
+    mk[:, 60:180, 100:300] = 1.0
+    gen_cfg, tcfg = InpainterConfig(), IT.InpaintTrainConfig()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        IT.train_step(state, fr, mk, 5, gen_cfg, tcfg)
+        out["inpaint_train_step"] = _profile_frames(
+            torch, lambda i: IT.train_step(state, fr, mk, 5, gen_cfg, tcfg), 2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    del state, gen, fr, mk
     torch.cuda.empty_cache()
     for name, summary in out.items():
         log(f"[profile {name}] {json.dumps(summary)}")
@@ -2644,6 +3018,7 @@ def main() -> int:
         kernels.extend(window)
         torch.cuda.empty_cache()
         b6, record["deform_cases"] = phase_deform_kernel(torch)
+        b6_bwd, record["deform_backward_cases"] = phase_deform_backward(torch)
         b7, record["binscan_probe"] = phase_binscan_probe(torch)
         record["grad_refusal"] = phase_grad_refusal(torch)
         torch.cuda.empty_cache()
@@ -2659,6 +3034,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         record["serve"] = phase_serve(torch, record["card"])
         record["train"] = phase_train(torch, record["card"])
+        torch.cuda.empty_cache()
+        record["inpaint_train"] = phase_inpaint_train(torch, record["card"])
         serving = (record["serve"]["launches"], record["serve"]["app"]["launches"])
         # launches: the sum over the main-path runs (phase 3, each of phase
         # 5's runs, phase 7, phase 9's runs, phase 10's requests and its app
@@ -2669,15 +3046,18 @@ def main() -> int:
             ) + record["interactive"]["launches"][kr["name"]] + record["eval"]["launches"].get(
                 kr["name"], 0) + sum(c.get(kr["name"], 0) for c in serving)
             check(kr["launches"] > 0, f"{kr['name']} never launched on the main path")
-        # B6: the sum over phase 8's inpaint runs and phase 10's, each
-        # counted from 0
+        # B6: the sum over phase 8's inpaint runs, phase 10's and phase 12's
+        # training steps, each counted from 0; its backward: phase 12's
+        trained = record["inpaint_train"]["launches"]
         b6["launches"] = record["inpaint"]["b6_launches"] + sum(
-            c["deform_patches_bounded"] for c in serving)
+            c["deform_patches_bounded"] for c in serving) + trained["deform_patches_bounded"]
         check(b6["launches"] > 0, "deform_patches_bounded never launched on the inpaint path")
+        b6_bwd["launches"] = trained["deform_patches_backward"]
+        check(b6_bwd["launches"] > 0, "deform_patches_backward never launched in training")
         # B7 is a probe on no product path: its launches are those of its own
         # entry point's run in phase 2e, counted from 0 there
         check(b7["launches"] > 0, "binscan_probe never launched in its probe run")
-        kernels.extend([b6, b7])
+        kernels.extend([b6, b6_bwd, b7])
         record["seconds"] = time.time() - t_start
         if args.profile:
             record["profile"] = phase_profile(torch)

@@ -217,6 +217,7 @@ def test_window_batch_matches_sequential(weights):
                                    err_msg=f"frame {i}")
 
 
+@torch.no_grad()
 def test_batched_generator_matches_single_windows(weights):
     """`generator_forward` on a batch of two windows with different
     `frame_valid` rows against the two windows run alone: outputs and flows

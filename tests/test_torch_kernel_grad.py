@@ -1,9 +1,11 @@
-"""The port's kernel wrappers compute forward passes only. On the card each
+"""B1-B5 and B7's wrappers compute forward passes only. On the card each
 refuses, through `ops/kernels/_autograd.refuse_grad`, an input that
 requires grad under grad mode (chip_smoke.py checks that on the card); on
 the CPU the wrappers run their plain PyTorch versions, which stay
-differentiable. Both halves are held here on the CPU: the helper itself,
-and a backward pass through each wrapper's CPU branch."""
+differentiable. B6 is an autograd Function with a backward kernel on the
+card and the plain backward on the CPU (`tests/test_torch_deform_grad.py`
+holds its numbers). Held here on the CPU: the helper itself, a backward
+pass through each wrapper's CPU branch, and which wrappers still refuse."""
 
 import numpy as np
 import pytest
@@ -85,3 +87,15 @@ def test_cpu_branch_backpropagates(name):
     (out.float() ** 2).sum().backward()
     for t in leaves:
         assert t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0
+
+
+def test_b6_is_a_function_and_the_others_refuse_on_the_card():
+    """B6's wrapper routes through `DeformPatches` (no refusal); the other
+    wrappers' modules still call `refuse_grad` on their CUDA branch."""
+    import inspect
+
+    fn, leaves = _case("deform_patches_bounded", np.random.default_rng(1))
+    assert isinstance(fn().grad_fn, tda.DeformPatches._backward_cls)
+    assert "refuse_grad" not in inspect.getsource(tda)
+    for mod in (tbp, tfa, tmr, twa):
+        assert "refuse_grad(" in inspect.getsource(mod), mod.__name__

@@ -53,6 +53,37 @@
 // plain PyTorch version's order, so the two agree to the last bit on finite
 // inputs.
 //
+// The backward (vosesam_deform_patches_backward) is no TPU kernel: the Pallas
+// kernel has no VJP and JAX differentiates the gather form. Given
+// grad (B, H, W, 9, Cin) it writes grad_x (B, H, W, Cin), grad_offset
+// (B, H, W, 2 G 9) in the (y, x) pair layout and grad_mask (B, H, W, G 9),
+// the gradients autograd of the plain PyTorch version gives:
+//
+//   ds        = grad * m                      (per channel)
+//   grad_x    += ((ds * wy) * wx) at each in-field corner
+//   grad_mask = sum_c grad * bilinear        (the four-corner sum before m)
+//   grad_off  = -(d w0 * r0) + d w1 * r1 per axis, d w the sums over c of
+//               ds times the other axis's weight times the corner value;
+//               r the radius rule's 0 / 1 factors (1 without a radius);
+//               the derivative of floor is 0, so at an integer position
+//               both corners still count, as in autograd.
+//
+// One thread per (pixel, tap, group) sample, in the grad's order (a warp's
+// first 16-byte grad loads cover consecutive groups of one (pixel, tap)).
+// It recomputes the sample's geometry in the forward's order (C18: the
+// same floor cell), then walks the group's cg channels in a fixed order, so
+// grad_offset and grad_mask are the same bits in every call. grad_x is a
+// scatter to data-dependent addresses: fp32 atomicAdd, four per channel
+// (with 16-byte accesses one float4 atomic per corner and four channels),
+// whose order changes from call to call, so grad_x agrees with the plain
+// version to rounding, not bit for bit (the wrapper zeroes grad_x; the
+// kernel allocates nothing). What bounds it: at the
+// trainer's shape it reads the 59.7 MB grad once and x, offsets and mask,
+// and writes the three gradients (~95 MB: ~0.028 ms at 3.35 TB/s), and it
+// adds 4 x 9 x 256 x 6480 = 59.7 M values atomically (14.9 M float4
+// atomics) into a 6.6 MB target that stays in L2: the atomics, not the
+// bytes, are the expected limit of this simple design.
+//
 // vosesam_deform_occupancy reports the instances' registers, shared memory
 // and resident blocks per SM on the card. Built with -DVOSESAM_PROFILE,
 // thread 0 of every block stamps the global timer at the ends of its phases
@@ -120,6 +151,7 @@ struct Axis {
   int i0, i1;        // clamped corner indices
   float w0, w1;      // corner weights, 0 where the radius rule drops the corner
   bool in0, in1;     // corner inside the field
+  bool r0, r1;       // corner kept by the radius rule (the backward's factors)
 };
 
 __device__ __forceinline__ Axis make_axis(int p, float off, float tap, int extent, int radius) {
@@ -136,12 +168,15 @@ __device__ __forceinline__ Axis make_axis(int p, float off, float tap, int exten
   ax.i1 = static_cast<int>(fminf(fmaxf(f1, 0.0f), hi));
   ax.w0 = __fsub_rn(1.0f, frac);
   ax.w1 = frac;
+  ax.r0 = ax.r1 = true;
   if (radius >= 0) {
     const float r = static_cast<float>(radius);
     const float d0 = __fsub_rn(f0, pf);
     const float d1 = __fadd_rn(d0, 1.0f);
-    if (!(d0 >= -r && d0 <= r)) ax.w0 = __fmul_rn(ax.w0, 0.0f);
-    if (!(d1 >= -r && d1 <= r)) ax.w1 = __fmul_rn(ax.w1, 0.0f);
+    ax.r0 = d0 >= -r && d0 <= r;
+    ax.r1 = d1 >= -r && d1 <= r;
+    if (!ax.r0) ax.w0 = __fmul_rn(ax.w0, 0.0f);
+    if (!ax.r1) ax.w1 = __fmul_rn(ax.w1, 0.0f);
   }
   return ax;
 }
@@ -208,6 +243,124 @@ deform_patches_kernel(const float* __restrict__ x, const float* __restrict__ off
     __stcs(ob + u, res);  // streaming: the patches are read once, by the contraction
   }
   PROF(2);
+}
+
+// ---------------------------------------------------------------- backward
+
+// The per-sample sums of the backward, each over the group's channels in
+// channel order: the two products that make up each corner weight's
+// gradient (kept apart, as autograd reduces each product on its own) and
+// the modulation's.
+struct BwdSums {
+  float x0a, x0b, x1a, x1b;   // d wx0 = x0a + x0b, d wx1 = x1a + x1b
+  float y0a, y0b, y1a, y1b;   // d wy0 = y0a + y0b, d wy1 = y1a + y1b
+  float m;                    // d m
+};
+
+// One channel: accumulate into s; returns the four corners' grad_x terms.
+__device__ __forceinline__ float4 bwd_channel(float g, float v00, float v01, float v10, float v11,
+                                              float wx0, float wx1, float wy0, float wy1, float m,
+                                              BwdSums& s) {
+  const float ds = __fmul_rn(g, m);
+  const float ta = __fmul_rn(ds, wy0);     // d (v00 * wx0) and d (v01 * wx1)
+  const float tc = __fmul_rn(ds, wy1);     // d (v10 * wx0) and d (v11 * wx1)
+  s.x0a = __fadd_rn(s.x0a, __fmul_rn(ta, v00));
+  s.x0b = __fadd_rn(s.x0b, __fmul_rn(tc, v10));
+  s.x1a = __fadd_rn(s.x1a, __fmul_rn(ta, v01));
+  s.x1b = __fadd_rn(s.x1b, __fmul_rn(tc, v11));
+  s.y0a = __fadd_rn(s.y0a, __fmul_rn(ds, __fmul_rn(v00, wx0)));
+  s.y0b = __fadd_rn(s.y0b, __fmul_rn(ds, __fmul_rn(v01, wx1)));
+  s.y1a = __fadd_rn(s.y1a, __fmul_rn(ds, __fmul_rn(v10, wx0)));
+  s.y1b = __fadd_rn(s.y1b, __fmul_rn(ds, __fmul_rn(v11, wx1)));
+  const float a = __fmul_rn(__fmul_rn(v00, wx0), wy0);
+  const float b = __fmul_rn(__fmul_rn(v01, wx1), wy0);
+  const float c = __fmul_rn(__fmul_rn(v10, wx0), wy1);
+  const float d = __fmul_rn(__fmul_rn(v11, wx1), wy1);
+  s.m = __fadd_rn(s.m, __fmul_rn(g, __fadd_rn(__fadd_rn(__fadd_rn(a, b), c), d)));
+  return make_float4(__fmul_rn(ta, wx0), __fmul_rn(ta, wx1), __fmul_rn(tc, wx0),
+                     __fmul_rn(tc, wx1));
+}
+
+// -(d w0 * r0) + d w1 * r1: the gradient of the axis's position (and so of
+// its offset), frac's derivative being 1 and floor's 0.
+__device__ __forceinline__ float axis_grad(float dw0, float dw1, const Axis& a) {
+  const float t0 = a.r0 ? dw0 : __fmul_rn(dw0, 0.0f);
+  const float t1 = a.r1 ? dw1 : __fmul_rn(dw1, 0.0f);
+  return __fadd_rn(-t0, t1);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+deform_patches_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
+                          const float* __restrict__ mask, const float* __restrict__ grad,
+                          float* __restrict__ grad_x, float* __restrict__ grad_offset,
+                          float* __restrict__ grad_mask,
+                          int n_samples, int H, int W, int Cin, int G, int radius) {
+  using V = typename Vec<VEC>::type;
+  const int s_id = blockIdx.x * kThreads + threadIdx.x;   // (pixel, tap, group)
+  if (s_id >= n_samples) return;
+  const int g = s_id % G;
+  const int pk = s_id / G;
+  const int pix = pk / kTaps, k = pk - pix * kTaps;
+  const int hw = H * W;
+  const int img = pix / hw, yx = pix - img * hw;
+  const int py = yx / W, px = yx - py * W;
+  const int j = (pix * G + g) * kTaps + k;                 // the offsets' and mask's layout
+  const float2 o = __ldg(reinterpret_cast<const float2*>(offset) + j);   // (y, x)
+  const float m = __ldg(mask + j);
+  const Axis ay = make_axis(py, o.x, static_cast<float>(k / 3 - 1), H, radius);
+  const Axis ax = make_axis(px, o.y, static_cast<float>(k % 3 - 1), W, radius);
+  const int base = img * hw;
+  const int cg = Cin / G;
+  int4 id;                                                 // corner element offsets, -1 outside
+  id.x = (ay.in0 && ax.in0) ? (base + ay.i0 * W + ax.i0) * Cin + g * cg : -1;
+  id.y = (ay.in0 && ax.in1) ? (base + ay.i0 * W + ax.i1) * Cin + g * cg : -1;
+  id.z = (ay.in1 && ax.in0) ? (base + ay.i1 * W + ax.i0) * Cin + g * cg : -1;
+  id.w = (ay.in1 && ax.in1) ? (base + ay.i1 * W + ax.i1) * Cin + g * cg : -1;
+  const float wx0 = ax.w0, wx1 = ax.w1, wy0 = ay.w0, wy1 = ay.w1;
+
+  BwdSums s = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const V* gp = reinterpret_cast<const V*>(grad + s_id * cg);
+  const V zero = zero_v(V());
+  for (int c = 0; c < cg; c += VEC) {
+    const V gv = ldv(gp + c / VEC);
+    const V v00 = id.x >= 0 ? ldv(reinterpret_cast<const V*>(x + id.x + c)) : zero;
+    const V v01 = id.y >= 0 ? ldv(reinterpret_cast<const V*>(x + id.y + c)) : zero;
+    const V v10 = id.z >= 0 ? ldv(reinterpret_cast<const V*>(x + id.z + c)) : zero;
+    const V v11 = id.w >= 0 ? ldv(reinterpret_cast<const V*>(x + id.w + c)) : zero;
+    if constexpr (VEC == 4) {
+      // four channels; each corner's four grad_x terms go out as one
+      // 16-byte vector atomic (sm_90: atomicAdd on float4 in global memory,
+      // atomic per element)
+      const float gs[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float a[4] = {v00.x, v00.y, v00.z, v00.w};
+      const float b[4] = {v01.x, v01.y, v01.z, v01.w};
+      const float cc[4] = {v10.x, v10.y, v10.z, v10.w};
+      const float d[4] = {v11.x, v11.y, v11.z, v11.w};
+      float t[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 r = bwd_channel(gs[e], a[e], b[e], cc[e], d[e], wx0, wx1, wy0, wy1, m, s);
+        t[0][e] = r.x; t[1][e] = r.y; t[2][e] = r.z; t[3][e] = r.w;
+      }
+      const int ids[4] = {id.x, id.y, id.z, id.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (ids[q] >= 0)
+          atomicAdd(reinterpret_cast<float4*>(grad_x + ids[q] + c),
+                    make_float4(t[q][0], t[q][1], t[q][2], t[q][3]));
+    } else {
+      const float4 r = bwd_channel(gv, v00, v01, v10, v11, wx0, wx1, wy0, wy1, m, s);
+      if (id.x >= 0) atomicAdd(grad_x + id.x + c, r.x);
+      if (id.y >= 0) atomicAdd(grad_x + id.y + c, r.y);
+      if (id.z >= 0) atomicAdd(grad_x + id.z + c, r.z);
+      if (id.w >= 0) atomicAdd(grad_x + id.w + c, r.w);
+    }
+  }
+  const float dy = axis_grad(__fadd_rn(s.y0a, s.y0b), __fadd_rn(s.y1a, s.y1b), ay);
+  const float dx = axis_grad(__fadd_rn(s.x0a, s.x0b), __fadd_rn(s.x1a, s.x1b), ax);
+  reinterpret_cast<float2*>(grad_offset)[j] = make_float2(dy, dx);
+  grad_mask[j] = s.m;
 }
 
 size_t smem_bytes(int P, int G) { return (size_t)P * kTaps * G * 36; }
@@ -281,6 +434,42 @@ extern "C" int vosesam_deform_occupancy(int vec, int pixels, int G, int* info) {
   const size_t smem = smem_bytes(pixels, G);
   return vec == 4 ? occupancy(deform_patches_kernel<4>, smem, info)
                   : occupancy(deform_patches_kernel<1>, smem, info);
+}
+
+// x (B, H, W, Cin), offset (B, H, W, 2 * G * 9), mask (B, H, W, G * 9),
+// grad (B, H, W, 9, Cin): contiguous fp32, offset 8-byte aligned; grad_x
+// (zeroed by the caller), grad_offset and grad_mask of the inputs' shapes.
+// vec: 4 for 16-byte accesses (cg % 4 == 0 and 16-byte aligned x, grad,
+// grad_x), else 1. The same 32-bit limits as the forward.
+extern "C" int vosesam_deform_patches_backward(
+    const float* x, const float* offset, const float* mask, const float* grad,
+    float* grad_x, float* grad_offset, float* grad_mask,
+    int B, int H, int W, int Cin, int G, int radius, int vec, void* stream_ptr) {
+  if (B < 0 || H < 1 || W < 1 || G < 1 || Cin < G || Cin % G != 0)
+    return (int)cudaErrorInvalidValue;
+  if (vec != 1 && vec != 4) return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (Cin / G) % 4 != 0) return (int)cudaErrorInvalidValue;
+  const long long n_pix = (long long)B * H * W;
+  if (n_pix * kTaps * Cin > 2147483647LL || n_pix * 2 * kTaps * G > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  if (n_pix == 0) return (int)cudaSuccess;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int n_samples = (int)(n_pix * kTaps * G);
+  const unsigned blocks = (unsigned)((n_samples + kThreads - 1) / kThreads);
+  if (vec == 4) {
+    deform_patches_bwd_kernel<4><<<blocks, kThreads, 0, stream>>>(
+        x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius);
+  } else {
+    deform_patches_bwd_kernel<1><<<blocks, kThreads, 0, stream>>>(
+        x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The backward's occupancy (no shared memory); info as above.
+extern "C" int vosesam_deform_backward_occupancy(int vec, int* info) {
+  return vec == 4 ? occupancy(deform_patches_bwd_kernel<4>, 0, info)
+                  : occupancy(deform_patches_bwd_kernel<1>, 0, info);
 }
 
 #ifdef VOSESAM_PROFILE

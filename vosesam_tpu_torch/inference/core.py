@@ -105,9 +105,12 @@ def step(
     state: TrackerState,
     frame: torch.Tensor,              # (H, W, 3) uint8 or float RGB
     cfg: FrameworkConfig,
+    end: bool = False,
 ) -> Tuple[TrackerState, torch.Tensor, torch.Tensor]:
     """Propagate one frame. Returns (state, prob_with_bg (1+O, H, W),
-    logits_with_bg (1+O, H, W))."""
+    logits_with_bg (1+O, H, W)). `end` marks the video's last frame
+    (inference_core.py `end`): it is never memorized and never deep-updates
+    the hidden state in async mode."""
     state.curr_ti += 1
     frame_p, pad, hw = _prepare(frame, cfg)
     obj_valid = state.memory.obj_valid
@@ -118,7 +121,7 @@ def step(
         net, feats, readout.to(frame_p.dtype), state.memory.hidden, obj_valid,
         cfg.xmem, h_out=True)
 
-    is_mem_frame = state.curr_ti - state.last_mem_ti >= cfg.memory.mem_every
+    is_mem_frame = state.curr_ti - state.last_mem_ti >= cfg.memory.mem_every and not end
     if cfg.memory.deep_update_every < 0:       # sync mode
         hidden_normal, deep_due = hidden_dec, True
     else:                                      # async: decoder GRU every frame
@@ -126,7 +129,7 @@ def step(
             state.memory.hidden = hidden_dec
         hidden_normal = None
         deep_due = (state.curr_ti - state.last_deep_update_ti
-                    >= cfg.memory.deep_update_every)
+                    >= cfg.memory.deep_update_every) and not end
     state = _maybe_memorize(net, cfg, state, frame_p, feats, key, shrinkage,
                             selection, prob_with_bg[1:], hidden_normal,
                             is_mem_frame, deep_due, obj_valid, hw)

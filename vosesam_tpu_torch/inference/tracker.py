@@ -20,6 +20,7 @@ a mid-video object add goes back to the per-object kernel.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -100,6 +101,7 @@ class Tracker:
         device: DeviceLike = None,
         sam: Optional[predictor.Sam] = None,
         paint: bool = True,
+        save_inner_masks_folder: Optional[str] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.net = net
@@ -122,6 +124,14 @@ class Tracker:
         # per object, the refined frames on which SAM's mask was kept: a
         # device count, read by callers that want the gate's keep rate
         self.sam_kept: Optional[torch.Tensor] = None
+        # base_tracker.py:80-89's debug dumps: per propagated frame, the raw
+        # XMem mask and the refined mask as palette PNGs under
+        # <folder>/inner/{xmem_masks,refinement_masks}/<n>.png
+        self._inner_dir: Optional[str] = save_inner_masks_folder
+        self._inner_ti = 0
+        if self._inner_dir:
+            for sub in ("xmem_masks", "refinement_masks"):
+                os.makedirs(os.path.join(self._inner_dir, "inner", sub), exist_ok=True)
 
     def clear_memory(self) -> None:
         """base_tracker.py:1092-1096."""
@@ -209,9 +219,24 @@ class Tracker:
         self._frames_tracked += 1
 
         indexed_np = indexed.cpu().numpy()
+        logits_np = logits.cpu().numpy()
+        if self._inner_dir and first_frame_annotation is None:
+            self._dump_inner(logits_np, indexed_np)
         final = self.mapper.remap_index_mask(indexed_np).astype(np.uint8)
-        return (final, logits.cpu().numpy(), painted.cpu().numpy() if self.paint else frame,
+        return (final, logits_np, painted.cpu().numpy() if self.paint else frame,
                 self._live_scores(scores.cpu().numpy(), indexed_np))
+
+    def _dump_inner(self, logits: np.ndarray, refined: np.ndarray) -> None:
+        """The XMem mask (re-derived from the logits, which refinement does
+        not change) and the refined mask of one frame, numbered from 1."""
+        from vosesam_tpu_torch.eval.palette import save_palette_mask
+
+        self._inner_ti += 1
+        base = os.path.join(self._inner_dir, "inner")
+        name = f"{self._inner_ti:05d}.png"
+        save_palette_mask(np.argmax(logits, axis=0).astype(np.uint8),
+                          os.path.join(base, "xmem_masks", name))
+        save_palette_mask(refined.astype(np.uint8), os.path.join(base, "refinement_masks", name))
 
     def _live_scores(self, scores_np: np.ndarray,
                      indexed_np: Optional[np.ndarray] = None) -> list:

@@ -19,8 +19,9 @@ The temporal focal window attention (tfocal_transformer_hq.py:173-428) is
 one fused softmax over [window | rolled | pooled] keys per window and stays
 plain PyTorch, as it stays an XLA path in the JAX package: its windows are
 T x 5 x 9 tokens. The deformable alignment of the propagation runs through
-the hand-written sampling kernel (`modules.modulated_deform_conv`). Training
-(`remat`) is not part of this module.
+the hand-written sampling kernel (`modules.modulated_deform_conv`), whose
+gradient is the kernel's backward on the card. `generator_forward(remat=True)`
+is the GAN trainer's (`training/inpaint_trainer.py`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from vosesam_tpu_torch.config import InpainterConfig
 from vosesam_tpu_torch.device import DeviceLike, resolve_device
@@ -442,13 +444,41 @@ def _resize_quarter(x: torch.Tensor) -> torch.Tensor:
     return resize_bilinear_align_corners(x, (x.shape[-3] // 4, x.shape[-2] // 4))
 
 
-@torch.no_grad()
+def quarter_flows(spynet: M.SPyNet, frames01: torch.Tensor, run=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, H, W, 3) frames in [0, 1] -> (forward, backward) flows of
+    consecutive frames, (B, T-1, H/4, W/4, 2): a 1/4 align-corners resize,
+    up to a multiple of 32 for SPyNet, the flows resized back and rescaled
+    (flow_comp.py:137-170). `run(fn, *args)` calls each SPyNet pass (the
+    generator's remat wrapper); the flow-completion loss calls it on the
+    frozen SPyNet, so both sides resize alike."""
+    b, t = frames01.shape[:2]
+    small = _resize_quarter(frames01)
+    sh, sw = small.shape[2:4]
+    # spynet needs /32: resize up, then scale the flow back
+    uh = -(-sh // 32) * 32
+    uw = -(-sw // 32) * 32
+    up = resize_bilinear(small, (uh, uw))
+    first, second = up[:, :-1].flatten(0, 1), up[:, 1:].flatten(0, 1)
+    run = run or (lambda fn, *args: fn(*args))
+    f_fwd = run(M.spynet_flow, spynet, first, second)
+    f_bwd = run(M.spynet_flow, spynet, second, first)
+
+    def down_flow(f):
+        f = resize_bilinear(f, (sh, sw))
+        f = f * torch.tensor([sw / uw, sh / uh], dtype=f.dtype, device=f.device)
+        return f.reshape(b, t - 1, sh, sw, 2)
+
+    return down_flow(f_fwd), down_flow(f_bwd)
+
+
 def generator_forward(
     net: InpaintGenerator,
     masked_frames: torch.Tensor,     # (T, H, W, 3) in [-1, 1], or (B, T, H, W, 3)
     num_local: int,
     cfg: InpainterConfig,
     frame_valid: Optional[torch.Tensor] = None,    # (T,) or (B, T) bool; pads False
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """e2fgvi_hq.py:235-263. Returns ((T, H, W, 3) tanh output, (forward,
     backward) 1/4-res flows of the local frames).
@@ -460,7 +490,15 @@ def generator_forward(
 
     With a leading batch axis, B independent windows of one shape go through
     every layer together (`InpainterConfig.window_batch`); outputs and flows
-    carry the same axis."""
+    carry the same axis.
+
+    Differentiable: inference callers run it under `torch.no_grad()`. `remat`
+    (training) wraps each stage (both SPyNet calls, the encoder, the
+    propagation, every focal block, the decoder) in
+    `torch.utils.checkpoint.checkpoint(use_reentrant=False)`, as the JAX
+    package wraps each in `jax.checkpoint`: the backward recomputes a
+    stage's activations instead of keeping them. Forward values are the
+    same with and without it."""
     batched = masked_frames.ndim == 5
     if not batched:
         masked_frames = masked_frames[None]
@@ -477,31 +515,18 @@ def generator_forward(
                 f"(SoftComp's learned bias is pinned to the ({bh}, {bw}) feature grid); "
                 f"got {h}x{w}. Use hq=True for arbitrary resolutions.")
 
+    def ckpt(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
     # bidirectional flows on the local window (frames mapped back to [0, 1])
-    local01 = (masked_frames[:, :lt] + 1.0) / 2.0
-    small = _resize_quarter(local01)
-    sh, sw = small.shape[2:4]
-    # spynet needs /32: resize up, then scale the flow back (flow_comp.py:137-170)
-    uh = -(-sh // 32) * 32
-    uw = -(-sw // 32) * 32
-    up = resize_bilinear(small, (uh, uw))
-    first, second = up[:, :-1].flatten(0, 1), up[:, 1:].flatten(0, 1)
-    f_fwd = M.spynet_flow(net.update_spynet, first, second)
-    f_bwd = M.spynet_flow(net.update_spynet, second, first)
+    flows_forward, flows_backward = quarter_flows(
+        net.update_spynet, (masked_frames[:, :lt] + 1.0) / 2.0, ckpt)
 
-    def down_flow(f):
-        f = resize_bilinear(f, (sh, sw))
-        f = f * torch.tensor([sw / uw, sh / uh], dtype=f.dtype, device=f.device)
-        return f.reshape(b, lt - 1, sh, sw, 2)
-
-    flows_forward = down_flow(f_fwd)
-    flows_backward = down_flow(f_bwd)
-
-    enc = encoder_forward(net.encoder, masked_frames.flatten(0, 1))   # (B*T, h/4, w/4, 128)
+    enc = ckpt(encoder_forward, net.encoder, masked_frames.flatten(0, 1))  # (B*T, h/4, w/4, 128)
     eh, ew = enc.shape[1:3]
     enc = enc.reshape(b, t, eh, ew, CHANNEL)
-    local_feat = bidirectional_propagation(net.feat_prop_module, enc[:, :lt], flows_backward,
-                                           flows_forward)
+    local_feat = ckpt(bidirectional_propagation, net.feat_prop_module, enc[:, :lt],
+                      flows_backward, flows_forward)
     enc_feat = torch.cat([local_feat, enc[:, lt:]], dim=1)
 
     tokens = M.soft_split(net.ss, enc_feat.flatten(0, 1), KERNEL, STRIDE, PADDING)
@@ -509,12 +534,14 @@ def generator_forward(
     fw = (ew + 2 * PADDING[1] - KERNEL[1]) // STRIDE[1] + 1
     x = tokens.reshape(b, t, fh, fw, HIDDEN)
     for blk in net.transformer[:cfg.num_blocks]:
-        x = focal_block_forward(blk, x, (eh, ew), frame_valid=frame_valid)
+        x = ckpt(lambda b_, x_: focal_block_forward(b_, x_, (eh, ew), frame_valid=frame_valid),
+                 blk, x)
     trans = M.soft_comp(net.sc, x.reshape(b * t, fh * fw, HIDDEN), (eh, ew), KERNEL, STRIDE,
                         PADDING)
     enc_feat = enc_feat + trans.reshape(b, t, eh, ew, CHANNEL)
 
-    out = torch.tanh(decoder_forward(net.decoder, enc_feat.flatten(0, 1))).reshape(b, t, h, w, 3)
+    out = torch.tanh(ckpt(decoder_forward, net.decoder, enc_feat.flatten(0, 1))
+                     ).reshape(b, t, h, w, 3)
     if batched:
         return out, (flows_forward, flows_backward)
     return out[0], (flows_forward[0], flows_backward[0])

@@ -92,3 +92,10 @@ def no_mask_dense(pe: PromptEncoder, grid_hw: Tuple[int, int]) -> torch.Tensor:
     """(h, w, 256) broadcast of the no-mask embedding."""
     wgt = pe.no_mask_embed.weight
     return wgt.reshape(1, 1, -1).expand(grid_hw[0], grid_hw[1], wgt.shape[-1])
+
+
+def box_to_points(box: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(4,) xyxy box -> its two corners (2, 2) with SAM's box-corner labels
+    (2, 3)."""
+    pts = torch.stack([box[:2], box[2:]], dim=0)
+    return pts, torch.tensor([2, 3], dtype=torch.int32, device=box.device)

@@ -39,6 +39,13 @@ def im_normalize(img: torch.Tensor) -> torch.Tensor:
     return (x - mean) / std
 
 
+def im_denormalize(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of `im_normalize` for float input: x * std + mean."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return x * std + mean
+
+
 def pad_amounts(h: int, w: int, d: int = 16) -> Tuple[int, int, int, int]:
     """(left, right, top, bottom) pads making H, W multiples of d; the odd
     pixel lands right/bottom (tensor_util.py:17-31)."""
@@ -213,3 +220,12 @@ def sam_input_resize(img: torch.Tensor, target: int = 1024, rect: bool = False,
         ph = pw = target
     out = F.pad(resized, (0, 0, 0, pw - nw, 0, ph - nh))
     return out, (nh, nw)
+
+
+def sam_coords_transform(coords: torch.Tensor, orig_hw: Tuple[int, int],
+                         target: int = 1024) -> torch.Tensor:
+    """(..., 2) (x, y) pixel coordinates of the original image -> SAM's
+    resized-longest-side space (ResizeLongestSide.apply_coords): a scale by
+    target / max(H, W)."""
+    h, w = orig_hw
+    return coords * (target / max(h, w))

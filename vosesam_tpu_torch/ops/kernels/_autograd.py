@@ -1,8 +1,9 @@
-"""The kernels' wrappers compute forward passes only: each writes a fresh
+"""B1-B5 and B7's wrappers compute forward passes only: each writes a fresh
 tensor through ctypes, so autograd sees no graph through a launch. Rather
-than hand back a result that silently carries no gradient, a wrapper calls
-`refuse_grad` on its CUDA branch and raises when autograd would want one.
-The plain PyTorch versions (the CPU branch) stay differentiable."""
+than hand back a result that silently carries no gradient, such a wrapper
+calls `refuse_grad` on its CUDA branch and raises when autograd would want
+one. The plain PyTorch versions (the CPU branch) stay differentiable. B6
+(`deform_align.DeformPatches`) has a backward kernel and needs no refusal."""
 
 from __future__ import annotations
 

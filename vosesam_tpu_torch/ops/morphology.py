@@ -175,6 +175,14 @@ def mask_bbox(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 # ------------------------------------------------------- boundary sampling
 
+def amplify_bbox(box: torch.Tensor, pixels: float, hw: Tuple[int, int]) -> torch.Tensor:
+    """Grow an (x0, y0, x1, y1) box by `pixels` on each side, clamped to the
+    image (base_tracker.py:658-675)."""
+    h, w = hw
+    return torch.stack([(box[0] - pixels).clamp(0, w - 1), (box[1] - pixels).clamp(0, h - 1),
+                        (box[2] + pixels).clamp(0, w - 1), (box[3] + pixels).clamp(0, h - 1)])
+
+
 def angular_boundary_points(mask: torch.Tensor, center_xy: torch.Tensor,
                             num_points: int, farthest: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:

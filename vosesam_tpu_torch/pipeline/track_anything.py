@@ -74,7 +74,10 @@ class TrackingAnything:
         device: DeviceLike = None,
         seed: int = 0,
         e2fgvi_checkpoint: Optional[str] = None,
+        save_inner_masks_folder: Optional[str] = None,
     ) -> None:
+        """`save_inner_masks_folder`: the tracker writes each propagated
+        frame's XMem and refined masks under <folder>/inner/ (`Tracker`)."""
         self.cfg = cfg or FrameworkConfig()
         self.device = resolve_device(device)
         net, xmem_cfg = load_or_init_xmem(xmem_checkpoint, self.cfg.xmem,
@@ -87,7 +90,8 @@ class TrackingAnything:
             if (self.cfg.refinement.use_refinement or sam_checkpoint) else None)
         self.samcontroler = (SamController(self.sam, self.cfg.sam, self.device)
                              if self.sam is not None else None)
-        self.xmem = Tracker(net, self.cfg, device=self.device, sam=self.sam)
+        self.xmem = Tracker(net, self.cfg, device=self.device, sam=self.sam,
+                            save_inner_masks_folder=save_inner_masks_folder)
         self.baseinpainter = None
         if e2fgvi_checkpoint:
             from vosesam_tpu_torch.pipeline.inpaint import Inpainter

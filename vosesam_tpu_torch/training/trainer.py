@@ -120,23 +120,36 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
 
 
 @torch.no_grad()
+def adam_update(leaves: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor], count: int,
+                lr: float, b1: float = B1, b2: float = B2, weight_decay: float = 0.0) -> None:
+    """optax's scale_by_adam (eps 1e-8, eps_root 0), then
+    add_decayed_weights where `weight_decay` is set, then the -lr scale, in
+    torch arithmetic and in place: `count` is the optimizer's step count
+    after this step; `mu` / `nu` are updated per leaf name."""
+    # the bias corrections in fp32, as optax computes decay ** count
+    bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** count
+    bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** count
+    step = -lr
+    for name, g in grads.items():
+        p = leaves[name]
+        m = (1 - b1) * g + b1 * mu[name]
+        v = (1 - b2) * (g * g) + b2 * nu[name]
+        mu[name], nu[name] = m, v
+        u = (m / bc1) / (torch.sqrt(v / bc2) + EPS)
+        if weight_decay:
+            u = u + weight_decay * p
+        p.copy_(p + step * u)
+
+
+@torch.no_grad()
 def apply_adamw(state: TrainState, grads: Dict[str, torch.Tensor], tcfg: TrainConfig) -> None:
     """One optax.chain(clip_by_global_norm, adamw(schedule)) step, in place."""
     grads = clip_by_global_norm(grads, tcfg.clip_norm)
-    leaves = trained_leaves(state.net)
-    step = -learning_rate(tcfg, state.count)
+    lr = learning_rate(tcfg, state.count)
     state.count += 1
-    # the bias corrections in fp32, as optax computes decay ** count
-    bc1 = 1 - torch.tensor(B1, dtype=torch.float32) ** state.count
-    bc2 = 1 - torch.tensor(B2, dtype=torch.float32) ** state.count
-    for name, g in grads.items():
-        p = leaves[name]
-        mu = (1 - B1) * g + B1 * state.mu[name]
-        nu = (1 - B2) * (g * g) + B2 * state.nu[name]
-        state.mu[name], state.nu[name] = mu, nu
-        u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-        u = u + tcfg.weight_decay * p
-        p.copy_(p + step * u)
+    adam_update(trained_leaves(state.net), grads, state.mu, state.nu, state.count, lr,
+                weight_decay=tcfg.weight_decay)
 
 
 def _train_read_memory(mem_keys, mem_shrink, mem_values, qk, qe) -> torch.Tensor:

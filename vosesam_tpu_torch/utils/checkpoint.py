@@ -12,9 +12,11 @@ state-dict names (XMem-s012; segment_anything / sam_hq; E2FGVI-HQ), so
     `E2FGVI-CVPR22.pth` (under its `netG` key when it has one; SPyNet's
     `mean` / `std` buffers, constants in the port, are dropped);
   - `params_from_jax` turns a JAX parameter tree (nested dicts of numpy
-    arrays: the XMem tree, the E2FGVI generator tree, or `SamParams`) into
-    the same state dict: conv
-    HWIO -> OIHW, conv-transpose HWIO -> IOHW, linear (in, out) -> (out, in),
+    arrays: the XMem tree, the E2FGVI generator or discriminator tree, or
+    `SamParams`) into the same state dict: conv
+    HWIO -> OIHW, conv3d THWIO -> OIDHW (a spectral-norm layer's weight,
+    `u` and `v` under the reference's `weight_orig`, `weight_u`,
+    `weight_v`), conv-transpose HWIO -> IOHW, linear (in, out) -> (out, in),
     embedding tables and other leaves as they are, the non-HQ E2FGVI
     `sc.bias` (H, W, C) -> the official (C, H, W), `key_encoder.layer1.` ->
     the official `key_encoder.res2.`, and `num_batches_tracked` beside every
@@ -59,11 +61,19 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):     # SamParams
         tree = dict(zip(_SAM_PARTS, tree))
     sd: Dict[str, torch.Tensor] = {}
-    for key, arr in _flatten(tree).items():
+    flat = _flatten(tree)
+    # spectral-norm layers (the discriminator's): weight, u, v
+    sn_layers = {k[:-2] for k in flat if k.endswith(".u") and k[:-2] + ".v" in flat}
+    for key, arr in flat.items():
         if key.startswith(_KEY_STAGE_RENAME[0]):
             key = _KEY_STAGE_RENAME[1] + key[len(_KEY_STAGE_RENAME[0]):]
         arr = np.array(arr, np.float32)
-        if key in _CONV_TRANSPOSE:                         # HWIO -> IOHW
+        layer, _, leaf = key.rpartition(".")
+        if layer in sn_layers:
+            key = f"{layer}.weight_{'orig' if leaf == 'weight' else leaf}"
+        if key.endswith(("weight", "weight_orig")) and arr.ndim == 5:   # THWIO -> OIDHW
+            arr = np.transpose(arr, (4, 3, 0, 1, 2))
+        elif key in _CONV_TRANSPOSE:                       # HWIO -> IOHW
             arr = np.transpose(arr, (2, 3, 0, 1))
         elif key == "sc.bias":                             # HWC -> CHW
             arr = np.transpose(arr, (2, 0, 1))

@@ -49,3 +49,8 @@ class MaskMapper:
     def num_objects(self) -> int:
         return len(self.labels)
 
+
+
+def all_to_onehot(mask: np.ndarray, labels: List[int]) -> np.ndarray:
+    """(H, W) indexed -> (N, H, W) uint8 one-hot (mask_mapper.py:4-12)."""
+    return np.stack([(mask == l).astype(np.uint8) for l in labels], 0)
