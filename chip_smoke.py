@@ -51,11 +51,13 @@ Phases (each one that fails exits non-zero):
      (no single PyTorch call computes the function);
   2g. (after 2d) B6's backward kernel against `deform_patches_backward_plain`
      at the trainer's (1, 60, 108, 256) field, 16 groups, offsets of the
-     model's form, radius None / 16 (equal) / firing 6, B 2, Cin 32 / 64 /
-     8, integer and far-out-of-field offsets: grad_offset and grad_mask
-     bit-equal over two calls and within 5e-5 of plain, grad_x (fp32
-     atomics) within 1e-4 per element and 1e-5 of its norm; through the
-     autograd Function; device time beside the bound, occupancy;
+     model's form, radius None / 16 (equal) / firing 6, flows of 9 and 20
+     pixels, B 2, Cin 32 / 64 / 128 / 8, integer and far-out-of-field
+     offsets: grad_offset and grad_mask bit-equal over two calls and within
+     5e-5 of plain, grad_x (fp32 atomics) within 1e-4 per element and 1e-5
+     of its norm; through the autograd Function; device times beside the
+     bound (and in the log the previous design's, a PERF.md figure),
+     occupancy;
   2e. kernel vs plain for B7 (the bin-scan probe) at the probe's shapes and
      small odd ones, then the probe's own run, counted from 0: the card's
      multiply-add rate in the scan and the scan's projected time per
@@ -136,10 +138,26 @@ Phases (each one that fails exits non-zero):
      launches (the forward and remat's recompute) and 8 backward launches,
      no plain call; ms per step and peak memory; at toy dims with TF32
      off, one step's gradients on the card against the CPU's.
+  13. multi-device at world size 1: an NCCL group, rank 0 of 1, through a
+     file:// rendezvous in a temporary directory; (a) `BatchedGenerator`
+     over two 480x854 videos of 12 and 9 frames with phase 9's `both_neg_C`
+     model: masks >= 99.9% equal to the sequential tracker's per video
+     (bit-equal expected), chunk 8 >= 99.9% equal to per frame, B1 and B3
+     launched, no plain call; (b) the DAVIS runner with `batched=` on phase
+     9's tree: masks >= 99.9% equal to phase 9's sequential run, J / F / AP
+     columns equal where the masks are; (c) `TrackingAnything(inpaint_mesh=
+     ...)` on phase 8's 24-frame clip at 240x432: within 1 grey level of the
+     unsharded static path, the bit-equal share printed, B6 counted; (d)
+     `sharded_memory_read_local` at phase 2's shapes: readout and usage
+     within 1e-4 of the single read; (e) one DP XMem toy step: the batch's
+     shard and the gradients' all-reduce bit-equal to their inputs, the
+     step bit-equal to the non-DP step, both under
+     torch.use_deterministic_algorithms (without it two steps on the card
+     differ, logged); (f) the group destroyed, its time logged.
 Kernel launch counts are set to 0 right before each main-path run (phases
-3, 5, 7, 8, 9, 10 and each step of 12) and read right after; the `kernels`
-line sums them (B7, a probe on no product path, counts its own run in
-phase 2e; B6's backward counts phase 12's steps).
+3, 5, 7, 8, 9, 10, each step of 12, and 13's runs) and read right after;
+the `kernels` line sums them (B7, a probe on no product path, counts its
+own run in phase 2e; B6's backward counts phase 12's steps).
 The last two lines are the `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -1299,15 +1317,24 @@ def _deform_bwd_bound(b, h, w, cin, g):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# B6-bwd's device time at the production case in its previous design (a
+# thread per sample walking the group's channels), a figure from PERF.md
+# section 6's B6-bwd row (NVIDIA H100 80GB HBM3, 700 W): printed in the log
+# beside this run's time, never in the kernels line (`ops.kernels.ab
+# --against` measures the two designs in one run)
+B6_BWD_PARENT_MS = 0.2551
+
+
 def phase_deform_backward(torch):
     """B6's backward kernel against `deform_patches_backward_plain` (TF32
     off, as phase 1 set it) at the trainer's shape (1, 60, 108, 256), 16
     groups, offsets of the model's form, radius None / 16 (equal to None) /
-    firing 6, B 2, Cin 32 / 64 / 8, integer and far-out-of-field offsets:
-    grad_offset and grad_mask bit-equal over two calls and within
-    DEFORM_BWD_TOL of plain, grad_x within DEFORM_BWD_X_TOL per element and
-    DEFORM_BWD_X_REL of its norm; the autograd Function launches it; device
-    time beside the bound and the occupancy."""
+    firing 6, flows of 9 and 20 pixels, B 2, Cin 32 / 64 / 8, integer and
+    far-out-of-field offsets: grad_offset and grad_mask bit-equal over two
+    calls and within DEFORM_BWD_TOL of plain, grad_x within DEFORM_BWD_X_TOL
+    per element and DEFORM_BWD_X_REL of its norm; through the autograd
+    Function; device times beside the bound (and, in the log, the previous
+    design's time from PERF.md), and the occupancy."""
     from vosesam_tpu_torch.ops.kernels import deform_align as da
 
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -1323,7 +1350,8 @@ def phase_deform_backward(torch):
         want = da.deform_patches_backward_plain(gp, x, off, msk, radius)
         for what, a, ref in zip(("grad_x", "grad_offset", "grad_mask"), got, want):
             check(a.shape == ref.shape and bool(torch.isfinite(a).all()),
-                  f"B6-bwd {name}: {what} {tuple(a.shape)}, finite {bool(torch.isfinite(a).all())}")
+                  f"B6-bwd {name}: {what} {tuple(a.shape)}, finite "
+                  f"{bool(torch.isfinite(a).all())}")
         check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
               f"B6-bwd {name}: grad_offset / grad_mask differ between two calls")
         err = {k: (a - ref).abs().max().item() if a.numel() else 0.0
@@ -1349,10 +1377,12 @@ def phase_deform_backward(torch):
     xl, offl, mskl = _deform_case(torch, gen, 1, h, w, cin, g, flow_px=9.0)
     compare("large flows radius None", xl, offl, mskl, None)
     compare("large flows radius 6", xl, offl, mskl, 6)
+    compare("flow 20", *_deform_case(torch, gen, 1, h, w, cin, g, 20.0), None)
     compare("B 2", *_deform_case(torch, gen, 2, h, w, cin, g, 4.0), None)
     compare("B 2 radius 6", *_deform_case(torch, gen, 2, h, w, cin, g, 9.0), 6)
     compare("Cin 32 (cg 2)", *_deform_case(torch, gen, 1, 23, 37, 32, 16, 4.0), None)
     compare("Cin 64 (cg 4) radius 3", *_deform_case(torch, gen, 2, 23, 37, 64, 16, 4.0), 3)
+    compare("Cin 128 (cg 32), G 4", *_deform_case(torch, gen, 1, 23, 37, 128, 4, 4.0), None)
     compare("G 2, Cin 8", *_deform_case(torch, gen, 1, 9, 11, 8, 2, 2.0), None)
     xi, offi, mski = _deform_case(torch, gen, 1, h, w, cin, g, 0.0)
     offi = torch.round(offi / 2.0)
@@ -1380,23 +1410,29 @@ def phase_deform_backward(torch):
         check(e <= tol, f"B6 autograd: {what} differs from the plain backward by {e}")
     worst = {k: max(c["max_abs_err"][k] for c in cases)
              for k in ("grad_x", "grad_offset", "grad_mask")}
-    log(f"[B6-bwd] radius None / 16 (equal) / firing 6, B 2, Cin 32 / 64 / 8, integer and far "
-        f"offsets, through autograd: ok; worst errors {worst}, grad_x over its norm "
-        f"{max(c['grad_x_err_over_norm'] for c in cases):.3g}; grad_x bit-equal over two "
-        f"calls in {sum(c['grad_x_bitequal_over_two_calls'] for c in cases)} of {len(cases)} "
-        f"cases")
-    OCCUPANCY["deform_align_backward"] = {f"vec {v}": da.backward_occupancy(v) for v in (4, 1)}
+    log(f"[B6-bwd] radius None / 16 (equal) / firing 6, flows 9 and 20, B 2, Cin 32 / 64 / "
+        f"128 / 8, integer and far offsets, through autograd: ok; worst errors {worst}, "
+        f"grad_x over its norm {max(c['grad_x_err_over_norm'] for c in cases):.3g}; grad_x "
+        f"bit-equal over two calls in {sum(c['grad_x_bitequal_over_two_calls'] for c in cases)} "
+        f"of {len(cases)} cases")
+    OCCUPANCY["deform_align_backward"] = {
+        "lanes cg 16": da.backward_occupancy(4, 16), "scalar cg 2": da.backward_occupancy(1, 2)}
     for inst, occ in OCCUPANCY["deform_align_backward"].items():
         log(f"[B6-bwd] occupancy {inst}: {json.dumps(occ)}")
 
     ms = device_ms(torch, lambda: da._backward_kernel(gp, x, off, msk, None))
     event_ms = time_ms(torch, lambda: da._backward_kernel(gp, x, off, msk, None))
+    times = {"production": ms}
+    for label, (xx, oo, mm) in (("large flows", (xl, offl, mskl)),):
+        times[label] = device_ms(torch, lambda: da._backward_kernel(gp, xx, oo, mm, None))
     plain_ms = device_ms(torch, lambda: da.deform_patches_backward_plain(gp, x, off, msk),
                          calls=5)
     bound_ms, bound_by = _deform_bwd_bound(1, h, w, cin, g)
     log(f"[B6-bwd] 60x108x256, G 16: kernel {ms:.4f} ms device (grad_x's zero fill included; "
-        f"one call by CUDA events {event_ms:.3f}), plain {plain_ms:.3f}, bound {bound_ms:.4f} "
-        f"({bound_by}), {bound_ms / ms:.1%} of it; no library call computes it")
+        f"one call by CUDA events {event_ms:.3f}; large flows {times['large flows']:.4f}), "
+        f"plain {plain_ms:.3f}, bound {bound_ms:.4f} ({bound_by}), {bound_ms / ms:.1%} of it; "
+        f"the previous design {B6_BWD_PARENT_MS} (a PERF.md figure, not this run's), "
+        f"{B6_BWD_PARENT_MS / ms:.2f}x; no library call computes it")
     kernel = dict(name="deform_patches_backward", route="cuda",
                   source="vosesam_tpu_torch/csrc/deform_align.cu",
                   replaces="vosesam_tpu/ops/pallas/deform_align.py:210 (no TPU kernel: "
@@ -1404,6 +1440,7 @@ def phase_deform_backward(torch):
                   max_abs_err=max(worst.values()), max_abs_err_by_output=worst, ms=ms,
                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                   event_ms=event_ms, timed_by="torch.profiler device time",
+                  large_flows_ms=times["large flows"],
                   tolerances=dict(grad_offset_mask=DEFORM_BWD_TOL, grad_x=DEFORM_BWD_X_TOL,
                                   grad_x_over_norm=DEFORM_BWD_X_REL),
                   shape="x (1, 60, 108, 256) fp32, 16 groups, radius None")
@@ -1864,7 +1901,7 @@ def phase_eval(torch, n_frames: int = 16, long_frames: int = 24, long_every: int
                 torch.cuda.synchronize()
                 _reset_all()
                 t = time.perf_counter()
-                fn()
+                result = fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t
                 counts = _read_all()
@@ -1875,6 +1912,7 @@ def phase_eval(torch, n_frames: int = 16, long_frames: int = 24, long_every: int
                 runs[label] = dict(frames=n_frames_run, wall_s=wall,
                                    ms_per_frame=wall * 1e3 / n_frames_run, launches=counts)
                 log(f"[eval] {label}: {json.dumps(runs[label])}")
+                return result
 
             def generator_ms(label, per_video):
                 """The runner's own timing: the generator alone per video
@@ -1886,8 +1924,10 @@ def phase_eval(torch, n_frames: int = 16, long_frames: int = 24, long_every: int
             for label, name, chunk in (("davis_baseline", "baseline", None),
                                        ("davis_both_neg_C", "both_neg_C", None),
                                        ("davis_both_neg_C_chunk8", "both_neg_C", 8)):
-                run(label, lambda: run_model_on_davis_set(
+                rows = run(label, lambda: run_model_on_davis_set(
                     label, models[name], davis, save_masks=True, chunk=chunk), davis_frames)
+                if label == "davis_both_neg_C":      # phase 13 runs it batched
+                    out["reference"] = dict(rows=rows, masks=kept[name][-2:], videos=videos)
                 generator_ms(label, _check_run_csvs(os.path.join("result", label), videos))
                 got = kept[name][-2:]
                 for video, masks in zip(videos, got):
@@ -2560,9 +2600,10 @@ TRAIN_PARAM_ATOL = 1e-5   # card vs CPU: parameters after one step (lr 1e-5) ...
 TRAIN_PARAM_SHARE = 0.999  # ... on this share of the elements
 
 
-def _toy_step(torch, dev, frames, gt, ov, grad_accum=1):
-    """One trainer step at toy dims from the same seeded weights on `dev`:
-    (gradients on the CPU, the loss, the trained state)."""
+def _toy_step(torch, dev, frames, gt, ov, grad_accum=1, mesh=None):
+    """One trainer step at toy dims from the same seeded weights on `dev`
+    (data parallel over `mesh` where given): (gradients on the CPU, the
+    loss, the trained state)."""
     from vosesam_tpu_torch.config import FrameworkConfig, XMemConfig
     from vosesam_tpu_torch.models.xmem.network import xmem_init
     from vosesam_tpu_torch.training import trainer as T
@@ -2572,9 +2613,16 @@ def _toy_step(torch, dev, frames, gt, ov, grad_accum=1):
     tcfg = T.TrainConfig(grad_accum=grad_accum)
     state = T.init_train_state(xmem_init(cfg.xmem, seed=3, device=dev), tcfg)
     batch = [torch.from_numpy(x).to(dev) for x in (frames, gt, ov)]
-    grads, loss, _ = T.batch_gradients(state, *batch, cfg, tcfg)
+    if mesh is not None:
+        from vosesam_tpu_torch.parallel.mesh import shard_batch
+
+        batch = shard_batch(batch, mesh)
+    grads, loss, aux = T.batch_gradients(state, *batch, cfg, tcfg)
+    if mesh is not None:
+        grads, loss, aux = T.all_reduce_mean(grads, loss, aux, mesh)
     T.apply_adamw(state, grads, tcfg)
     return {k: v.cpu() for k, v in grads.items()}, float(loss), state
+
 
 
 def _compare_steps(torch, name, a, b):
@@ -2597,6 +2645,17 @@ def _compare_steps(torch, name, a, b):
     check(share >= TRAIN_PARAM_SHARE, f"train: {name}: parameters within {TRAIN_PARAM_ATOL} "
                                       f"on only {share} of the elements")
     return res
+
+
+def _step_diff(torch, a, b):
+    """How far two toy steps lie apart: the largest gradient difference over
+    the global norm, and the largest parameter difference after the update."""
+    (ga, _, sa), (gb, _, sb) = a, b
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in gb.values())))
+    pa, pb = sa.net.state_dict(), sb.net.state_dict()
+    return dict(grad_err_over_norm=max(float((ga[k] - gb[k]).abs().max()) for k in gb) / norm,
+                param_max_abs_diff=max(float((pa[k] - pb[k]).abs().max()) for k in pb
+                                       if not k.endswith("num_batches_tracked")))
 
 
 def phase_train(torch, card: str, n_steps: int = 5):
@@ -2877,6 +2936,270 @@ def phase_inpaint_train(torch, card: str, n_steps: int = 5):
     return out
 
 
+# ------------------------------------ multi-device at world size 1 (A13)
+
+MULTI_AGREEMENT = 0.999   # masks of two runs of the same code, where cuDNN may
+                          # pick another algorithm between them
+SHARDED_READ_TOL = 1e-4   # the sharded read against the single read (JAX's test's)
+
+
+def _mask_agreement(a, b) -> float:
+    """The share of equal pixels over two lists of masks of equal shapes."""
+    same = sum(int((x == y).sum()) for x, y in zip(a, b))
+    return same / sum(x.size for x in a)
+
+
+def _jfap(rows):
+    return [{k: r[k] for k in ("video", "J_mean", "F_mean", "JF_mean", "AP", "AP50", "AP75")}
+            for r in rows]
+
+
+def phase_multi_device(torch, card: str, reference: dict):
+    """Multi-device at world size 1: an NCCL process group, rank 0 of 1,
+    opened through a `file://` rendezvous in a temporary directory, and
+    through it (a) `BatchedGenerator` over two 480x854 videos of 12 and 9
+    frames with phase 9's `both_neg_C` model (XMem-s012 widths, SAM-HQ vit_h
+    at the square encode, bf16): masks against the sequential tracker per
+    video, chunk 8 against per frame, B1 and B3 launched and no plain call;
+    (b) the DAVIS runner with `batched=` on phase 9's tree: its masks and J
+    / F / AP columns against phase 9's sequential run (`reference`: its
+    rows, masks and videos); (c) `TrackingAnything(
+    inpaint_mesh=...)` on phase 8's 24-frame clip at 240x432 against the
+    unsharded static path; (d) `sharded_memory_read_local` at phase 2's
+    shapes against the single read; (e) one DP XMem toy step bit-equal to
+    the non-DP step under deterministic algorithms (the shard and the
+    all-reduce of one rank are identities); (f) the group destroyed. Kernel counts are set to 0 before each run and read after."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vosesam_tpu_torch.config import FrameworkConfig, ParallelConfig, RefinementConfig
+    from vosesam_tpu_torch.eval import synthetic
+    from vosesam_tpu_torch.eval.datasets import DavisDataset
+    from vosesam_tpu_torch.eval.runner import run_model_on_davis_set
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+    from vosesam_tpu_torch.ops.memory_attention import read_memory_multiobject
+    from vosesam_tpu_torch.parallel import mesh as meshlib
+    from vosesam_tpu_torch.parallel.evaluation import BatchedGenerator
+    from vosesam_tpu_torch.parallel.memory_shard import sharded_memory_read_local
+    from vosesam_tpu_torch.pipeline.inpaint import Inpainter
+    from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
+    from vosesam_tpu_torch.run_davis_test import CONFIGS, make_model
+    from vosesam_tpu_torch.training import trainer as T
+
+    h, w = 480, 854
+    t_phase = time.time()
+    out = dict(card=card)
+    launches = {}
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        _reset_all()
+        da.reset_counts()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        counts = dict(_read_all(), deform_patches_bounded=da.COUNTS["deform_patches_bounded"])
+        counts["plain"] += da.COUNTS["plain"]
+        check(counts["plain"] == 0, f"multi-device {label}: {counts['plain']} plain calls")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        out.setdefault("runs", {})[label] = dict(wall_s=time.perf_counter() - t, launches=counts)
+        return result, counts
+
+    tmp = tempfile.mkdtemp(prefix="vosesam_pg_")
+    here = os.getcwd()
+    t0 = time.time()
+    rank, world = meshlib.init_distributed(f"file://{os.path.join(tmp, 'rendezvous')}", 1, 0,
+                                           device="cuda")
+    out["init_s"] = time.time() - t0
+    try:
+        check((rank, world) == (0, 1) and dist.get_backend() == "nccl",
+              f"multi-device: group rank {rank} of {world}, backend {dist.get_backend()}")
+        mesh = meshlib.make_mesh(ParallelConfig())
+        check(mesh.shape == (1, 1) and mesh.data_group is not None, f"mesh {mesh.shape}")
+        log(f"[multi] NCCL group of 1 through a file:// rendezvous in {out['init_s']:.2f} s")
+
+        # (a) BatchedGenerator against the sequential tracker, chunk 8 against per frame
+        args = argparse.Namespace(sam_model_type="vit_h", hq=True, xmem_checkpoint=None,
+                                  sam_checkpoint=None, device="cuda")
+        ta = make_model(args, CONFIGS["both_neg_C"])
+        videos = [list(moving_frames(12, h, w, seed=21)), list(moving_frames(9, h, w, seed=22))]
+        templates = [seed_mask(h, w), seed_mask(h, w)]
+        seq = []
+        for v, tm in zip(videos, templates):
+            ta.xmem.clear_memory()
+            seq.append(ta.generator(v, tm)[0])
+        ta.xmem.clear_memory()
+        gen = BatchedGenerator(ta.xmem_net, ta.sam, ta.cfg, mesh=mesh, device="cuda")
+        got, counts = counted("batched", lambda: gen.run(videos, templates))
+        check(counts["fused_memory_read_shared"] > 0 and counts["flash_attention_relpos"] > 0,
+              f"multi-device batched: launches {counts}")
+        gen8 = BatchedGenerator(ta.xmem_net, ta.sam, ta.cfg, mesh=mesh, chunk=8, device="cuda")
+        got8, counts8 = counted("batched_chunk8", lambda: gen8.run(videos, templates))
+        check(counts8["fused_memory_read_shared"] > 0 and counts8["flash_attention_relpos"] > 0,
+              f"multi-device batched chunk 8: launches {counts8}")
+        a_seq = [_mask_agreement(g["masks"], s_) for g, s_ in zip(got, seq)]
+        a_chunk = [_mask_agreement(g["masks"], p["masks"]) for g, p in zip(got8, got)]
+        check([len(g["masks"]) for g in got] == [12, 9] and [len(g["masks"]) for g in got8]
+              == [12, 9], "multi-device: lanes' frame counts")
+        check(min(a_seq) >= MULTI_AGREEMENT and min(a_chunk) >= MULTI_AGREEMENT,
+              f"multi-device: batched vs sequential {a_seq}, chunk 8 vs per frame {a_chunk}")
+        out["a"] = dict(batched_vs_sequential_equal_share=a_seq,
+                        bitequal=[a == 1.0 for a in a_seq],
+                        chunk8_vs_per_frame_equal_share=a_chunk)
+        log(f"[multi] (a) BatchedGenerator, 2 videos of 12 and 9 frames at 480x854: equal "
+            f"pixels vs the sequential tracker {a_seq}, chunk 8 vs per frame {a_chunk}; "
+            f"launches {json.dumps(counts)} / {json.dumps(counts8)}")
+
+        # (b) the DAVIS runner with batched= on phase 9's tree
+        with tempfile.TemporaryDirectory(prefix="vosesam_eval_") as etmp:
+            os.chdir(etmp)
+            try:
+                synthetic.write_tree("data", h, w, seed=7, davis_frames=16, long_frames=24,
+                                     long_every=8, lvos_frames=12, ovis_frames=8)
+                davis = DavisDataset("data/DAVIS", "2017/val.txt")
+                kept = []
+                run_lanes = gen.run
+
+                def keep(v, tm):
+                    res = run_lanes(v, tm)
+                    kept.extend(r["masks"] for r in res)
+                    return res
+
+                gen.run = keep
+                rows, counts = counted("davis_batched", lambda: run_model_on_davis_set(
+                    "davis_both_neg_C_batched", ta, davis, batched=gen))
+                gen.run = run_lanes
+            finally:
+                os.chdir(here)
+        agree = [_mask_agreement(k, r) for k, r in zip(kept, reference["masks"])]
+        same_columns = _jfap(rows) == _jfap(reference["rows"])
+        check([r["video"] for r in rows] == reference["videos"],
+              f"multi-device runner: videos {[r['video'] for r in rows]}")
+        check(min(agree) >= MULTI_AGREEMENT and (same_columns or min(agree) < 1.0),
+              f"multi-device runner: equal pixels {agree}, J / F / AP equal {same_columns}: "
+              f"{_jfap(rows)} vs {_jfap(reference['rows'])}")
+        out["b"] = dict(equal_pixels=agree, jfap_equal=same_columns, rows=_jfap(rows))
+        log(f"[multi] (b) DAVIS runner batched= on phase 9's tree: equal pixels vs phase 9's "
+            f"sequential run {agree}, J / F / AP columns equal: {same_columns}")
+        del ta, gen, gen8
+        torch.cuda.empty_cache()
+
+        # (c) Inpainter(mesh=...) through the facade against the unsharded path
+        cfg = FrameworkConfig(refinement=RefinementConfig(use_refinement=False),
+                              dtype="bfloat16")
+        ta2 = TrackingAnything(cfg=cfg, device="cuda", seed=0,
+                               e2fgvi_checkpoint="random-weights", inpaint_mesh=mesh)
+        drv = ta2.baseinpainter
+        check(drv.mesh is mesh, "multi-device: the facade's inpainter has no mesh")
+        _randomise_offset_heads(torch, drv.net, seed=11)
+        clip = list(moving_frames(24, h, w, seed=7))
+        masks = ta2.generator(clip, seed_mask(h, w))[0]
+        flat = Inpainter(cfg=drv.cfg, net=drv.net, device="cuda")
+        allow_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True          # phase 8's counted setting
+        try:
+            sharded, counts = counted("inpaint_mesh", lambda: drv.inpaint(clip, masks,
+                                                                          ratio=0.5))
+            want = flat.inpaint(clip, masks, ratio=0.5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow_tf32
+        calls, expect = _inpaint_windows(drv, len(clip))
+        check(counts["deform_patches_bounded"] == expect,
+              f"multi-device inpaint: B6 {counts['deform_patches_bounded']}, expected {expect}")
+        d = np.abs(np.stack(sharded).astype(np.int32) - np.stack(want).astype(np.int32))
+        check(int(d.max()) <= 1, f"multi-device inpaint: {int(d.max())} grey levels from the "
+                                 f"unsharded path")
+        out["c"] = dict(max_grey_levels=int(d.max()), bitequal_share=float((d == 0).mean()),
+                        windows=calls, b6_launches=counts["deform_patches_bounded"])
+        log(f"[multi] (c) Inpainter(mesh=...) on the 24-frame clip at 240x432: "
+            f"{json.dumps(out['c'])}")
+        del ta2, drv, flat
+        torch.cuda.empty_cache()
+
+        # (d) the sharded read at phase 2's shapes against the single read
+        gen_t = torch.Generator(device="cuda").manual_seed(31)
+        o, q, ck, cv, k = 2, 1620, 64, 512, 30
+        m = 1000 + 10 * q
+        mk = torch.randn((m, ck), generator=gen_t, device="cuda").to(torch.bfloat16)
+        ms = 1.0 + torch.randn((m,), generator=gen_t, device="cuda") ** 2
+        qk = torch.randn((q, ck), generator=gen_t, device="cuda").to(torch.bfloat16)
+        qe = torch.sigmoid(torch.randn((q, ck), generator=gen_t, device="cuda")).to(
+            torch.bfloat16)
+        mv = torch.randn((o, m, cv), generator=gen_t, device="cuda").to(torch.bfloat16)
+        kv = torch.arange(m, device="cuda") < 1000 + 9 * q
+        vv = torch.stack([kv, kv & (torch.arange(m, device="cuda") % 3 != 0)])
+        got_r, got_u = sharded_memory_read_local(mk, ms, qk, qe, mv, vv, k)
+        want_r, want_u = read_memory_multiobject(mk, ms, mv, qk, qe, kv, vv, k,
+                                                 return_usage=True)
+        err_r = float((got_r - want_r).abs().max())
+        err_u = float((got_u - want_u).abs().max())
+        check(err_r <= SHARDED_READ_TOL and err_u <= SHARDED_READ_TOL,
+              f"multi-device sharded read: readout {err_r}, usage {err_u}")
+        out["d"] = dict(readout_max_abs_err=err_r, usage_max_abs_err=err_u, tol=SHARDED_READ_TOL)
+        log(f"[multi] (d) sharded_memory_read_local at Q 1620, M 17 200, O 2 over NCCL: "
+            f"{json.dumps(out['d'])}")
+
+        # (e) one DP toy step against the non-DP step, bit for bit. At world
+        # size 1 the batch's shard and the all-reduce are identities, so the
+        # DP step is the non-DP step's computation. By default two steps on
+        # the card differ (an op with nondeterministic CUDA atomics, such as
+        # `torch.gather`'s backward in the bootstrapped cross-entropy, has a
+        # deterministic alternative): the compared steps run under
+        # torch.use_deterministic_algorithms
+        rng = np.random.default_rng(0)
+        frames = (0.01 * rng.normal(size=(2, 3, 64, 64, 3))).astype(np.float32)
+        gt = np.zeros((2, 3, 64, 64), np.int32)
+        gt[:, :, 16:40, 16:40] = 1
+        gt[1, :, 40:60, 4:24] = 2
+        ov = np.array([[True, False], [True, True]])
+        batch = [torch.from_numpy(x).cuda() for x in (frames, gt, ov)]
+        shard_identity = all(torch.equal(a, b)
+                             for a, b in zip(meshlib.shard_batch(batch, mesh), batch))
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            default = _toy_step(torch, "cuda", frames, gt, ov)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                single = _toy_step(torch, "cuda", frames, gt, ov)
+                dp = _toy_step(torch, "cuda", frames, gt, ov, mesh=mesh)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        grads = {k: v.cuda() for k, v in single[0].items()}
+        loss, aux = torch.tensor(single[1], device="cuda"), {"ce": grads[next(iter(grads))].sum()}
+        rg, rl, ra = T.all_reduce_mean(grads, loss, aux, mesh)
+        reduce_identity = (all(torch.equal(rg[k], grads[k]) for k in grads)
+                           and torch.equal(rl, loss) and torch.equal(ra["ce"], aux["ce"]))
+        dp_diff = _step_diff(torch, dp, single)
+        out["e"] = dict(shard_identity=shard_identity, all_reduce_identity=reduce_identity,
+                        dp_vs_non_dp=dp_diff, loss_equal=dp[1] == single[1],
+                        default_mode_vs_deterministic=_step_diff(torch, default, single))
+        log(f"[multi] (e) one DP toy step over NCCL against the non-DP step, deterministic "
+            f"algorithms: {json.dumps(out['e'])}")
+        check(shard_identity and reduce_identity,
+              f"multi-device: at world size 1 the shard ({shard_identity}) or the all-reduce "
+              f"({reduce_identity}) changed its input")
+        check(dp[1] == single[1] and not any(dp_diff.values()),
+              f"multi-device DP step: loss {dp[1]} vs {single[1]}, {dp_diff} from the non-DP "
+              f"step")
+    finally:
+        os.chdir(here)
+        t0 = time.time()
+        meshlib.destroy()
+        out["destroy_s"] = time.time() - t0
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "multi-device: the group outlived its phase")
+    out.update(launches=launches, seconds=time.time() - t_phase)
+    log(f"[multi] (f) group destroyed in {out['destroy_s']:.3f} s; phase 13 took "
+        f"{out['seconds']:.1f} s; launches {json.dumps(launches)}")
+    return out
+
+
 def _profile_frames(torch, step, n_prof: int):
     """torch.profiler over `n_prof` calls of step(i): device time by kernel
     and the device's busy share of the window."""
@@ -3036,21 +3359,28 @@ def main() -> int:
         record["train"] = phase_train(torch, record["card"])
         torch.cuda.empty_cache()
         record["inpaint_train"] = phase_inpaint_train(torch, record["card"])
+        torch.cuda.empty_cache()
+        record["multi_device"] = phase_multi_device(torch, record["card"],
+                                                    record["eval"].pop("reference"))
         serving = (record["serve"]["launches"], record["serve"]["app"]["launches"])
+        multi = record["multi_device"]["launches"]
         # launches: the sum over the main-path runs (phase 3, each of phase
         # 5's runs, phase 7, phase 9's runs, phase 10's requests and its app
-        # session), each counted from 0 right before the run
+        # session, phase 13's runs), each counted from 0 right before the run
         for kr in kernels:
             kr["launches"] = counts.get(kr["name"], 0) + sum(
                 r["launches"][kr["name"]] for r in record["main_path"].values()
             ) + record["interactive"]["launches"][kr["name"]] + record["eval"]["launches"].get(
-                kr["name"], 0) + sum(c.get(kr["name"], 0) for c in serving)
+                kr["name"], 0) + sum(c.get(kr["name"], 0) for c in serving) + multi.get(
+                kr["name"], 0)
             check(kr["launches"] > 0, f"{kr['name']} never launched on the main path")
         # B6: the sum over phase 8's inpaint runs, phase 10's and phase 12's
-        # training steps, each counted from 0; its backward: phase 12's
+        # training steps and phase 13's inpaint, each counted from 0; its
+        # backward: phase 12's
         trained = record["inpaint_train"]["launches"]
         b6["launches"] = record["inpaint"]["b6_launches"] + sum(
-            c["deform_patches_bounded"] for c in serving) + trained["deform_patches_bounded"]
+            c["deform_patches_bounded"] for c in serving) + trained["deform_patches_bounded"] \
+            + multi["deform_patches_bounded"]
         check(b6["launches"] > 0, "deform_patches_bounded never launched on the inpaint path")
         b6_bwd["launches"] = trained["deform_patches_backward"]
         check(b6_bwd["launches"] > 0, "deform_patches_backward never launched in training")

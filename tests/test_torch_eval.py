@@ -12,7 +12,9 @@
     model (fixed masks and scores, non-contiguous labels) write the same
     whole_metrics / per_object_metrics / <video>_scores / all_tests rows,
     compared as parsed CSV apart from the fps columns;
-  - the DAVIS entry point on the CPU, and `--batch` / `batched=` raising.
+  - the DAVIS entry point on the CPU; `batched=` through a stand-in
+    generator and `--mesh` larger than the process group raising (the
+    batched runs themselves: test_torch_parallel_eval.py).
 
 The two packages tracking the same trees end to end: test_torch_eval_e2e.py
 (`baseline`) and test_torch_eval_refined.py (`both_neg_C`). No test reads
@@ -27,6 +29,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from vosesam_tpu.eval import datasets as jds
@@ -411,19 +414,51 @@ def test_csv_writer_formats_as_pandas(tmp_path):
     assert (tmp_path / "t2.csv").read_text() == (tmp_path / "p2.csv").read_text()
 
 
+class _StandInBatched:
+    """A BatchedGenerator stand-in: the mock model's masks per video."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def run(self, videos, templates):
+        self.calls.append(len(videos))
+        out = []
+        for frames, template in zip(videos, templates):
+            self.model.xmem.clear_memory()
+            masks, _, _, scores = self.model.generator(frames, template)
+            labels = [int(v) for v in np.unique(template) if v]
+            out.append({"masks": masks, "scores": scores,
+                        "label_scores": [dict(zip(labels, s)) for s in scores]})
+        return out
+
+
 def test_batched_and_mesh_raise(png_tree, tmp_path, monkeypatch):
+    """`batched=` runs every dataset's videos through the generator's `run`,
+    one call per resolution, with the sequential rows but fps; `--mesh`
+    larger than the process group raises JAX's error, and the group the
+    entry point opened is closed again."""
     monkeypatch.chdir(tmp_path)
     ds = tds.DavisDataset(os.path.join(png_tree[0], "DAVIS"))
-    with pytest.raises(NotImplementedError, match="A13"):
-        trun.run_model_on_davis_set("b", _MockModel(TMaskMapper()), ds, batched=object())
+    seq = trun.run_model_on_davis_set("s", _MockModel(TMaskMapper()), ds)
+    stand_in = _StandInBatched(_MockModel(TMaskMapper()))
+    got = trun.run_model_on_davis_set("b", None, ds, batched=stand_in)
+    assert stand_in.calls == [len(seq)]
+
+    def but_fps(rows):      # NaN as a string, so that == holds it
+        return [{k: "nan" if isinstance(v, float) and math.isnan(v) else v
+                 for k, v in r.items() if k != "fps"} for r in rows]
+
+    assert but_fps(got) == but_fps(seq)
     lds = tds.LongVideoDataset(os.path.join(png_tree[0], "LongDataset"))
     for fn in (trun.run_model_on_longdata_set, trun.run_model_on_longvos_set):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fn("b", _MockModel(TMaskMapper()), lds, batched=object())
-    for flag in (["--batch"], ["--mesh", "2x1"]):
-        with pytest.raises(NotImplementedError, match="A13"):
-            run_davis_test.main(["--davis_root", os.path.join(png_tree[0], "DAVIS"),
-                                 "--device", "cpu", "--configs", "baseline", *flag])
+        stand_in = _StandInBatched(_MockModel(TMaskMapper()))
+        fn("b", None, lds, batched=stand_in)
+        assert stand_in.calls == [1]
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
+        run_davis_test.main(["--davis_root", os.path.join(png_tree[0], "DAVIS"),
+                             "--device", "cpu", "--configs", "baseline", "--batch",
+                             "--mesh", "2x1"])
+    assert not torch.distributed.is_initialized()
 
 
 def test_davis_entry_point_runs_on_the_cpu(png_tree, tmp_path, monkeypatch, capsys):

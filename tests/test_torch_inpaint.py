@@ -267,7 +267,9 @@ def test_flip_pad_and_default_dilation(weights):
 # ------------------------------------------------------------- entry points
 
 def test_mesh_raises_and_no_cuda_raises(weights):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A mesh that is no `parallel.mesh.Mesh` raises (the mesh path itself:
+    test_torch_parallel_inpaint.py)."""
+    with pytest.raises(TypeError, match="mesh"):
         tinp.Inpainter(cfg=TCFG, net=weights[1], mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -157,10 +157,12 @@ def test_grow_objects_pads_invalid():
 
 
 def test_sharded_read_waits_for_multi_device():
+    """Two memory shards need a process group of two ranks (the sharded
+    read itself: test_torch_parallel.py)."""
     from vosesam_tpu_torch.config import ParallelConfig
 
     cfg = MemoryConfig(**MEM)
     state = trings.init_memory(cfg, XMemConfig(**XM), (H16, W16))
     q = torch.zeros((H16, W16, CK))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         tman.match_memory(state, q, q, cfg, ParallelConfig(memory_axis_shards=2))

@@ -296,5 +296,8 @@ def test_train_xmem_entry_point(tmp_path):
     assert ck["it"] == 2 and ck["optimizer"]["count"] == 2
     assert train_xmem.main(args + ["--steps", "3", "--resume", save, "--save", save]) == 0
     assert torch.load(save, weights_only=True)["it"] == 3
-    with pytest.raises(NotImplementedError, match="--dp"):
-        train_xmem.main(args + ["--dp"])
+    # --dp: a process group of one (gloo on the CPU), closed again on return
+    dp_save = str(tmp_path / "dp.pth")
+    assert train_xmem.main(args + ["--dp", "--save", dp_save]) == 0
+    assert torch.load(dp_save, weights_only=True)["it"] == 2
+    assert not torch.distributed.is_initialized()

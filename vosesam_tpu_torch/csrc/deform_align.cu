@@ -68,26 +68,45 @@
 //               the derivative of floor is 0, so at an integer position
 //               both corners still count, as in autograd.
 //
-// One thread per (pixel, tap, group) sample, in the grad's order (a warp's
-// first 16-byte grad loads cover consecutive groups of one (pixel, tap)).
-// It recomputes the sample's geometry in the forward's order (C18: the
-// same floor cell), then walks the group's cg channels in a fixed order, so
-// grad_offset and grad_mask are the same bits in every call. grad_x is a
-// scatter to data-dependent addresses: fp32 atomicAdd, four per channel
-// (with 16-byte accesses one float4 atomic per corner and four channels),
-// whose order changes from call to call, so grad_x agrees with the plain
-// version to rounding, not bit for bit (the wrapper zeroes grad_x; the
-// kernel allocates nothing). What bounds it: at the
-// trainer's shape it reads the 59.7 MB grad once and x, offsets and mask,
-// and writes the three gradients (~95 MB: ~0.028 ms at 3.35 TB/s), and it
-// adds 4 x 9 x 256 x 6480 = 59.7 M values atomically (14.9 M float4
-// atomics) into a 6.6 MB target that stays in L2: the atomics, not the
-// bytes, are the expected limit of this simple design.
+// What bounds it: at the trainer's shape it reads the 59.7 MB grad once and
+// x, offsets and mask, and writes the three gradients (~95 MB: ~0.028 ms at
+// 3.35 TB/s); it adds 4 x 9 x 256 x 6480 = 59.7 M values into grad_x, a
+// 6.6 MB target that stays in L2. grad_x is a scatter to data-dependent
+// addresses, so it is accumulated with fp32 atomics whose order changes
+// from call to call: grad_x agrees with the plain version to rounding, not
+// bit for bit (the wrapper zeroes it; the kernel allocates nothing). The
+// time tracks the atomic traffic to L2, not the bytes (PERF.md: scalar
+// atomics 0.69 ms, one 16-byte atomic per corner and 4 channels 0.26 ms).
 //
-// vosesam_deform_occupancy reports the instances' registers, shared memory
-// and resident blocks per SM on the card. Built with -DVOSESAM_PROFILE,
-// thread 0 of every block stamps the global timer at the ends of its phases
-// (python -m vosesam_tpu_torch.ops.kernels.phases).
+// The design: cg / 4 lanes per (pixel, tap, group) sample, one 4-channel
+// chunk each, samples in the grad's order (deform_bwd_lanes_kernel). Each
+// lane recomputes the sample's geometry in the forward's order (C18: the
+// same floor cell), loads its 16-byte chunk of the grad and of the four
+// corners, and adds its four corner terms with 16-byte vector atomics; the
+// cg / 4 lanes of a corner cover its cg contiguous floats in one warp
+// instruction, so L2 sees a sample's 64 bytes as whole 32-byte sectors
+// instead of scattered 16-byte pieces (2.3x the thread-per-sample kernel on
+// the H100). Each lane sums its four channels in order and the lanes meet
+// in a fixed-order shuffle butterfly, so grad_offset and grad_mask are the
+// same bits in every call. A corner the radius rule drops adds an exact
+// zero and is skipped. 48 registers, no shared memory: full occupancy.
+// Where cg / 4 is no power of two up to 32 (cg 2, 12, 256, ...) or a
+// tensor is not 16-byte aligned, one thread per sample walks the channels
+// one by one (deform_bwd_sample_kernel).
+//
+// Why not a window of grad_x in shared memory per tile of output pixels,
+// flushed once (the design first planned for it): on sm_90 an fp32 add to
+// shared memory is a compare-and-swap loop (ATOMS.CAST.SPIN;
+// red.shared.add.f32 compiles to the same), which costs more than the
+// global vector atomics it saves. Measured on the H100 with a 16 x 16 tile
+// and a 32 x 32 window: 0.42 ms at the trainer's shape, 4.8% of the corner
+// terms falling back to global atomics (PERF.md).
+//
+// vosesam_deform_occupancy and vosesam_deform_backward_occupancy report
+// the instances' registers, shared memory and resident blocks per SM on the
+// card. Built with -DVOSESAM_PROFILE, thread 0 of every block stamps the
+// global timer at the ends of its phases (python -m
+// vosesam_tpu_torch.ops.kernels.phases).
 //
 // Plain C interface (bound with ctypes); the launcher returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -150,6 +169,7 @@ __device__ __forceinline__ float4 blend(float4 v00, float4 v01, float4 v10, floa
 struct Axis {
   int i0, i1;        // clamped corner indices
   float w0, w1;      // corner weights, 0 where the radius rule drops the corner
+  float frac;        // the position's fraction above the floor cell
   bool in0, in1;     // corner inside the field
   bool r0, r1;       // corner kept by the radius rule (the backward's factors)
 };
@@ -166,6 +186,7 @@ __device__ __forceinline__ Axis make_axis(int p, float off, float tap, int exten
   ax.in1 = (f1 >= 0.0f) && (f1 <= hi);
   ax.i0 = static_cast<int>(fminf(fmaxf(f0, 0.0f), hi));
   ax.i1 = static_cast<int>(fminf(fmaxf(f1, 0.0f), hi));
+  ax.frac = frac;
   ax.w0 = __fsub_rn(1.0f, frac);
   ax.w1 = frac;
   ax.r0 = ax.r1 = true;
@@ -289,14 +310,120 @@ __device__ __forceinline__ float axis_grad(float dw0, float dw1, const Axis& a) 
   return __fadd_rn(-t0, t1);
 }
 
-template <int VEC>
+#ifdef VOSESAM_PROFILE
+// per backward block: start, geometry and loads done, grad_x's atomics
+// issued, done (ns)
+__device__ unsigned long long g_prof_bwd[1 << 16][4];
+#define PROF_BWD(slot)                                                        \
+  do {                                                                        \
+    const unsigned blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \
+    if (threadIdx.x == 0 && blk < (1u << 16)) g_prof_bwd[blk][slot] = now_ns(); \
+  } while (0)
+#else
+#define PROF_BWD(slot) do {} while (0)
+#endif
+
+// The fixed-order butterfly over the VECS lanes of one sample: every lane
+// ends with the same bits, the same in every call.
+template <int VECS>
+__device__ __forceinline__ float lane_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < VECS; o <<= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <int VECS>
+__device__ __forceinline__ void lane_sums(BwdSums& s) {
+  s.x0a = lane_sum<VECS>(s.x0a); s.x0b = lane_sum<VECS>(s.x0b);
+  s.x1a = lane_sum<VECS>(s.x1a); s.x1b = lane_sum<VECS>(s.x1b);
+  s.y0a = lane_sum<VECS>(s.y0a); s.y0b = lane_sum<VECS>(s.y0b);
+  s.y1a = lane_sum<VECS>(s.y1a); s.y1b = lane_sum<VECS>(s.y1b);
+  s.m = lane_sum<VECS>(s.m);
+}
+
+// VECS = cg / 4 lanes per (pixel, tap, group) sample,
+// one 4-channel chunk each, samples in the grad's order. Each lane
+// recomputes the sample's geometry (make_axis, the forward's cell), loads
+// its chunk of the grad and of the four corners, sums its four channels in
+// order and adds its corner terms to grad_x with 16-byte vector atomics;
+// the lanes' partial sums meet in a fixed-order butterfly, so grad_offset /
+// grad_mask are the same bits in every call.
+template <int VECS>
 __global__ void __launch_bounds__(kThreads)
-deform_patches_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                          const float* __restrict__ mask, const float* __restrict__ grad,
-                          float* __restrict__ grad_x, float* __restrict__ grad_offset,
-                          float* __restrict__ grad_mask,
-                          int n_samples, int H, int W, int Cin, int G, int radius) {
-  using V = typename Vec<VEC>::type;
+deform_bwd_lanes_kernel(const float* __restrict__ x, const float* __restrict__ offset,
+                        const float* __restrict__ mask, const float* __restrict__ grad,
+                        float* __restrict__ grad_x, float* __restrict__ grad_offset,
+                        float* __restrict__ grad_mask, int n_samples, int H, int W, int Cin,
+                        int G, int radius) {
+  PROF_BWD(0);
+  const int u = blockIdx.x * kThreads + threadIdx.x;
+  const int s0 = u / VECS, cv = u % VECS;
+  const bool active = s0 < n_samples;
+  const int s_id = active ? s0 : n_samples - 1;   // the tail's lanes still shuffle
+  const int g = s_id % G, pk = s_id / G;
+  const int pix = pk / kTaps, k = pk - pix * kTaps;
+  const int hw = H * W, img = pix / hw, yx = pix - img * hw;
+  const int py = yx / W, px = yx - py * W;
+  const int j = (pix * G + g) * kTaps + k;                  // the offsets' and mask's layout
+  const float2 o = __ldg(reinterpret_cast<const float2*>(offset) + j);   // (y, x)
+  const float m = __ldg(mask + j);
+  const Axis ay = make_axis(py, o.x, static_cast<float>(k / 3 - 1), H, radius);
+  const Axis ax = make_axis(px, o.y, static_cast<float>(k % 3 - 1), W, radius);
+  const int cg = Cin / G, c = cv * 4;
+  const int at = img * hw;
+  int id[4];                                                // corner element offsets, -1 outside
+  id[0] = (ay.in0 && ax.in0) ? (at + ay.i0 * W + ax.i0) * Cin + g * cg + c : -1;
+  id[1] = (ay.in0 && ax.in1) ? (at + ay.i0 * W + ax.i1) * Cin + g * cg + c : -1;
+  id[2] = (ay.in1 && ax.in0) ? (at + ay.i1 * W + ax.i0) * Cin + g * cg + c : -1;
+  id[3] = (ay.in1 && ax.in1) ? (at + ay.i1 * W + ax.i1) * Cin + g * cg + c : -1;
+  // a corner the radius rule drops adds an exact zero to grad_x: skipped
+  const bool kept[4] = {ay.r0 && ax.r0, ay.r0 && ax.r1, ay.r1 && ax.r0, ay.r1 && ax.r1};
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 gv = __ldg(reinterpret_cast<const float4*>(grad + s_id * cg + c));
+  float4 v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    v[q] = id[q] >= 0 ? __ldg(reinterpret_cast<const float4*>(x + id[q])) : zero;
+  PROF_BWD(1);
+  const float gs[4] = {gv.x, gv.y, gv.z, gv.w};
+  const float a[4] = {v[0].x, v[0].y, v[0].z, v[0].w}, b[4] = {v[1].x, v[1].y, v[1].z, v[1].w};
+  const float cc[4] = {v[2].x, v[2].y, v[2].z, v[2].w}, d[4] = {v[3].x, v[3].y, v[3].z, v[3].w};
+  BwdSums s = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float t[4][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float4 r = bwd_channel(gs[e], a[e], b[e], cc[e], d[e], ax.w0, ax.w1, ay.w0, ay.w1, m, s);
+    t[0][e] = r.x; t[1][e] = r.y; t[2][e] = r.z; t[3][e] = r.w;
+  }
+  if (active) {
+    // sm_90: a 16-byte vector atomic in global memory (atomic per element);
+    // the VECS lanes of a corner cover its cg contiguous floats
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (id[q] >= 0 && kept[q])
+        atomicAdd(reinterpret_cast<float4*>(grad_x + id[q]),
+                  make_float4(t[q][0], t[q][1], t[q][2], t[q][3]));
+  }
+  PROF_BWD(2);
+  lane_sums<VECS>(s);
+  if (active && cv == 0) {
+    const float dy = axis_grad(__fadd_rn(s.y0a, s.y0b), __fadd_rn(s.y1a, s.y1b), ay);
+    const float dx = axis_grad(__fadd_rn(s.x0a, s.x0b), __fadd_rn(s.x1a, s.x1b), ax);
+    reinterpret_cast<float2*>(grad_offset)[j] = make_float2(dy, dx);
+    grad_mask[j] = s.m;
+  }
+  PROF_BWD(3);
+}
+
+// cg / 4 no power of two up to 32, or unaligned tensors: one thread per
+// sample walks the group's channels one by one, with scalar loads and
+// atomics.
+__global__ void __launch_bounds__(kThreads)
+deform_bwd_sample_kernel(const float* __restrict__ x, const float* __restrict__ offset,
+                         const float* __restrict__ mask, const float* __restrict__ grad,
+                         float* __restrict__ grad_x, float* __restrict__ grad_offset,
+                         float* __restrict__ grad_mask, int n_samples, int H, int W, int Cin,
+                         int G, int radius) {
   const int s_id = blockIdx.x * kThreads + threadIdx.x;   // (pixel, tap, group)
   if (s_id >= n_samples) return;
   const int g = s_id % G;
@@ -305,57 +432,32 @@ deform_patches_bwd_kernel(const float* __restrict__ x, const float* __restrict__
   const int hw = H * W;
   const int img = pix / hw, yx = pix - img * hw;
   const int py = yx / W, px = yx - py * W;
-  const int j = (pix * G + g) * kTaps + k;                 // the offsets' and mask's layout
-  const float2 o = __ldg(reinterpret_cast<const float2*>(offset) + j);   // (y, x)
+  const int j = (pix * G + g) * kTaps + k;
+  const float2 o = __ldg(reinterpret_cast<const float2*>(offset) + j);
   const float m = __ldg(mask + j);
   const Axis ay = make_axis(py, o.x, static_cast<float>(k / 3 - 1), H, radius);
   const Axis ax = make_axis(px, o.y, static_cast<float>(k % 3 - 1), W, radius);
-  const int base = img * hw;
+  const int at = img * hw;
   const int cg = Cin / G;
-  int4 id;                                                 // corner element offsets, -1 outside
-  id.x = (ay.in0 && ax.in0) ? (base + ay.i0 * W + ax.i0) * Cin + g * cg : -1;
-  id.y = (ay.in0 && ax.in1) ? (base + ay.i0 * W + ax.i1) * Cin + g * cg : -1;
-  id.z = (ay.in1 && ax.in0) ? (base + ay.i1 * W + ax.i0) * Cin + g * cg : -1;
-  id.w = (ay.in1 && ax.in1) ? (base + ay.i1 * W + ax.i1) * Cin + g * cg : -1;
-  const float wx0 = ax.w0, wx1 = ax.w1, wy0 = ay.w0, wy1 = ay.w1;
-
+  int id[4];
+  id[0] = (ay.in0 && ax.in0) ? (at + ay.i0 * W + ax.i0) * Cin + g * cg : -1;
+  id[1] = (ay.in0 && ax.in1) ? (at + ay.i0 * W + ax.i1) * Cin + g * cg : -1;
+  id[2] = (ay.in1 && ax.in0) ? (at + ay.i1 * W + ax.i0) * Cin + g * cg : -1;
+  id[3] = (ay.in1 && ax.in1) ? (at + ay.i1 * W + ax.i1) * Cin + g * cg : -1;
+  const bool kept[4] = {ay.r0 && ax.r0, ay.r0 && ax.r1, ay.r1 && ax.r0, ay.r1 && ax.r1};
   BwdSums s = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const V* gp = reinterpret_cast<const V*>(grad + s_id * cg);
-  const V zero = zero_v(V());
-  for (int c = 0; c < cg; c += VEC) {
-    const V gv = ldv(gp + c / VEC);
-    const V v00 = id.x >= 0 ? ldv(reinterpret_cast<const V*>(x + id.x + c)) : zero;
-    const V v01 = id.y >= 0 ? ldv(reinterpret_cast<const V*>(x + id.y + c)) : zero;
-    const V v10 = id.z >= 0 ? ldv(reinterpret_cast<const V*>(x + id.z + c)) : zero;
-    const V v11 = id.w >= 0 ? ldv(reinterpret_cast<const V*>(x + id.w + c)) : zero;
-    if constexpr (VEC == 4) {
-      // four channels; each corner's four grad_x terms go out as one
-      // 16-byte vector atomic (sm_90: atomicAdd on float4 in global memory,
-      // atomic per element)
-      const float gs[4] = {gv.x, gv.y, gv.z, gv.w};
-      const float a[4] = {v00.x, v00.y, v00.z, v00.w};
-      const float b[4] = {v01.x, v01.y, v01.z, v01.w};
-      const float cc[4] = {v10.x, v10.y, v10.z, v10.w};
-      const float d[4] = {v11.x, v11.y, v11.z, v11.w};
-      float t[4][4];
+  const float* gp = grad + s_id * cg;
+  for (int c = 0; c < cg; ++c) {
+    const float v00 = id[0] >= 0 ? __ldg(x + id[0] + c) : 0.f;
+    const float v01 = id[1] >= 0 ? __ldg(x + id[1] + c) : 0.f;
+    const float v10 = id[2] >= 0 ? __ldg(x + id[2] + c) : 0.f;
+    const float v11 = id[3] >= 0 ? __ldg(x + id[3] + c) : 0.f;
+    const float4 r = bwd_channel(__ldg(gp + c), v00, v01, v10, v11, ax.w0, ax.w1, ay.w0, ay.w1,
+                                 m, s);
+    const float t[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 r = bwd_channel(gs[e], a[e], b[e], cc[e], d[e], wx0, wx1, wy0, wy1, m, s);
-        t[0][e] = r.x; t[1][e] = r.y; t[2][e] = r.z; t[3][e] = r.w;
-      }
-      const int ids[4] = {id.x, id.y, id.z, id.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (ids[q] >= 0)
-          atomicAdd(reinterpret_cast<float4*>(grad_x + ids[q] + c),
-                    make_float4(t[q][0], t[q][1], t[q][2], t[q][3]));
-    } else {
-      const float4 r = bwd_channel(gv, v00, v01, v10, v11, wx0, wx1, wy0, wy1, m, s);
-      if (id.x >= 0) atomicAdd(grad_x + id.x + c, r.x);
-      if (id.y >= 0) atomicAdd(grad_x + id.y + c, r.y);
-      if (id.z >= 0) atomicAdd(grad_x + id.z + c, r.z);
-      if (id.w >= 0) atomicAdd(grad_x + id.w + c, r.w);
-    }
+    for (int q = 0; q < 4; ++q)
+      if (id[q] >= 0 && kept[q]) atomicAdd(grad_x + id[q] + c, t[q]);
   }
   const float dy = axis_grad(__fadd_rn(s.y0a, s.y0b), __fadd_rn(s.y1a, s.y1b), ay);
   const float dx = axis_grad(__fadd_rn(s.x0a, s.x0b), __fadd_rn(s.x1a, s.x1b), ax);
@@ -436,11 +538,34 @@ extern "C" int vosesam_deform_occupancy(int vec, int pixels, int G, int* info) {
                   : occupancy(deform_patches_kernel<1>, smem, info);
 }
 
+namespace {
+
+template <int VECS>
+void launch_lanes(const float* x, const float* offset, const float* mask, const float* grad,
+                  float* grad_x, float* grad_offset, float* grad_mask, int n_samples, int H,
+                  int W, int Cin, int G, int radius, cudaStream_t stream) {
+  const long long threads = (long long)n_samples * VECS;
+  deform_bwd_lanes_kernel<VECS><<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
+                                  stream>>>(x, offset, mask, grad, grad_x, grad_offset, grad_mask,
+                                            n_samples, H, W, Cin, G, radius);
+}
+
+// The backward's lanes per sample: cg / 4 where that is a power of two
+// up to 32 and the accesses can be 16 bytes wide; 0 for the scalar kernel.
+int lanes_for(int vec, int cg) {
+  if (vec != 4 || cg % 4 != 0) return 0;
+  const int v = cg / 4;
+  return (v <= 32 && (v & (v - 1)) == 0) ? v : 0;
+}
+
+}  // namespace
+
 // x (B, H, W, Cin), offset (B, H, W, 2 * G * 9), mask (B, H, W, G * 9),
 // grad (B, H, W, 9, Cin): contiguous fp32, offset 8-byte aligned; grad_x
 // (zeroed by the caller), grad_offset and grad_mask of the inputs' shapes.
 // vec: 4 for 16-byte accesses (cg % 4 == 0 and 16-byte aligned x, grad,
-// grad_x), else 1. The same 32-bit limits as the forward.
+// grad_x), else 1. The same 32-bit limits as the forward. lanes_for picks
+// the lanes kernel, else the scalar one.
 extern "C" int vosesam_deform_patches_backward(
     const float* x, const float* offset, const float* mask, const float* grad,
     float* grad_x, float* grad_offset, float* grad_mask,
@@ -455,25 +580,41 @@ extern "C" int vosesam_deform_patches_backward(
   if (n_pix == 0) return (int)cudaSuccess;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int n_samples = (int)(n_pix * kTaps * G);
-  const unsigned blocks = (unsigned)((n_samples + kThreads - 1) / kThreads);
-  if (vec == 4) {
-    deform_patches_bwd_kernel<4><<<blocks, kThreads, 0, stream>>>(
-        x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius);
-  } else {
-    deform_patches_bwd_kernel<1><<<blocks, kThreads, 0, stream>>>(
-        x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius);
+  switch (lanes_for(vec, Cin / G)) {
+    case 1: launch_lanes<1>(x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius, stream); break;
+    case 2: launch_lanes<2>(x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius, stream); break;
+    case 4: launch_lanes<4>(x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius, stream); break;
+    case 8: launch_lanes<8>(x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius, stream); break;
+    case 16: launch_lanes<16>(x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius, stream); break;
+    case 32: launch_lanes<32>(x, offset, mask, grad, grad_x, grad_offset, grad_mask, n_samples, H, W, Cin, G, radius, stream); break;
+    default:
+      deform_bwd_sample_kernel<<<(unsigned)((n_samples + kThreads - 1) / kThreads), kThreads, 0,
+                                 stream>>>(x, offset, mask, grad, grad_x, grad_offset,
+                                           grad_mask, n_samples, H, W, Cin, G, radius);
   }
   return (int)cudaGetLastError();
 }
 
-// The backward's occupancy (no shared memory); info as above.
-extern "C" int vosesam_deform_backward_occupancy(int vec, int* info) {
-  return vec == 4 ? occupancy(deform_patches_bwd_kernel<4>, 0, info)
-                  : occupancy(deform_patches_bwd_kernel<1>, 0, info);
+// The occupancy of the instance a launch at (vec, cg) selects; info as above.
+extern "C" int vosesam_deform_backward_occupancy(int vec, int cg, int* info) {
+  if (cg < 1) return (int)cudaErrorInvalidValue;
+  switch (lanes_for(vec, cg)) {
+    case 1: return occupancy(deform_bwd_lanes_kernel<1>, 0, info);
+    case 2: return occupancy(deform_bwd_lanes_kernel<2>, 0, info);
+    case 4: return occupancy(deform_bwd_lanes_kernel<4>, 0, info);
+    case 8: return occupancy(deform_bwd_lanes_kernel<8>, 0, info);
+    case 16: return occupancy(deform_bwd_lanes_kernel<16>, 0, info);
+    case 32: return occupancy(deform_bwd_lanes_kernel<32>, 0, info);
+    default: return occupancy(deform_bwd_sample_kernel, 0, info);
+  }
 }
 
 #ifdef VOSESAM_PROFILE
 extern "C" int vosesam_deform_profile(void* dst, int n_blocks) {
   return (int)cudaMemcpyFromSymbol(dst, g_prof, (size_t)n_blocks * 4 * 8);
+}
+
+extern "C" int vosesam_deform_backward_profile(void* dst, int n_blocks) {
+  return (int)cudaMemcpyFromSymbol(dst, g_prof_bwd, (size_t)n_blocks * 4 * 8);
 }
 #endif

@@ -12,8 +12,11 @@ The JAX runners write their CSVs through pandas; here the standard
 library's `csv` module writes the same files (`write_csv`: the same header
 and row order, the same values, a float column's integers as floats and NaN
 as an empty field, as pandas writes them), and the runners return the rows
-of the JAX DataFrame as a list of dicts. `batched=` (videos in lockstep
-over a device mesh) belongs to the multi-device slice and raises here.
+of the JAX DataFrame as a list of dicts. `batched=` takes a
+`parallel.evaluation.BatchedGenerator`: whole videos then spread
+over the ranks of its mesh, grouped by resolution, with the sequential
+path's masks; fps becomes the group's aggregate rate. Every rank computes
+the same rows; only rank 0 writes files (CSVs, masks, videos, the ledger).
 """
 
 from __future__ import annotations
@@ -30,12 +33,11 @@ import numpy as np
 from vosesam_tpu_torch.eval import metrics as M
 from vosesam_tpu_torch.eval.datasets import DavisDataset, LongVideoDataset
 from vosesam_tpu_torch.eval.palette import save_palette_mask
+from vosesam_tpu_torch.parallel.mesh import is_writer
 
 ALL_TESTS_CSV = "./result/all_tests.csv"
 # per-video keys that are not columns of whole_metrics.csv / the returned rows
 TRACE_KEYS = ("per_object", "J_trace", "F_trace", "masks", "scores")
-BATCHED_NOT_PORTED = ("batched evaluation over a device mesh is not ported yet "
-                      "(ROADMAP A13, multi-device)")
 
 
 # ------------------------------------------------------------------ CSV
@@ -110,11 +112,14 @@ def format_table(rows: Sequence[Dict], columns: Sequence[str]) -> str:
 
 def _result_dir(runname: str) -> str:
     d = os.path.join("./result", runname)
-    os.makedirs(d, exist_ok=True)
+    if is_writer():
+        os.makedirs(d, exist_ok=True)
     return d
 
 
 def _append_global_ledger(row: Dict) -> None:
+    if not is_writer():
+        return
     os.makedirs(os.path.dirname(ALL_TESTS_CSV), exist_ok=True)
     write_csv(ALL_TESTS_CSV, [row], append=True)
 
@@ -174,6 +179,51 @@ def _metrics_from_masks(
     return video_metrics
 
 
+def _batched_group_metrics(batched, group_frames, group_templates, group_gts) -> List[Dict]:
+    """One same-resolution group of videos through a BatchedGenerator, and
+    its metrics per video. fps is the group's aggregate rate (frames over
+    the group's wall time), given to every video of the group."""
+    t0 = time.time()
+    results = batched.run(group_frames, group_templates)
+    dt = time.time() - t0
+    fps = sum(len(f) for f in group_frames) / dt if dt > 0 else 0.0
+    return [_metrics_from_masks(res["masks"], gts, res["label_scores"], fps=fps,
+                                scores=res["scores"])
+            for res, gts in zip(results, group_gts)]
+
+
+def _infos(dataset, max_videos: Optional[int]) -> List[Dict]:
+    return [info for vi, info in enumerate(dataset.iter_videos())
+            if max_videos is None or vi < max_videos]
+
+
+def _groups_by_resolution(dataset, infos) -> Dict[tuple, List[tuple]]:
+    """(position, info) of the videos, grouped by their frames' (H, W)."""
+    groups: Dict[tuple, List[tuple]] = {}
+    for pos, info in enumerate(infos):
+        first = dataset.load_frame(info["name"], info["frames"][0])
+        groups.setdefault(first.shape[:2], []).append((pos, info))
+    return groups
+
+
+def _run_batched_with_gt(batched, dataset, max_videos, gts_of, template_of) -> List[Dict]:
+    """A metric-bearing dataset through a BatchedGenerator: one run per
+    resolution, metrics per video, rows in the dataset's order. `gts_of`
+    maps an info to its per-frame ground truth (None where unannotated);
+    `template_of(info, gts)` picks the seeding template."""
+    infos = _infos(dataset, max_videos)
+    per_video: List[Optional[Dict]] = [None] * len(infos)
+    for group in _groups_by_resolution(dataset, infos).values():
+        frames = [dataset.load_frames(i["name"], i["frames"]) for _, i in group]
+        gts = [gts_of(i) for _, i in group]
+        templates = [template_of(i, g) for (_, i), g in zip(group, gts)]
+        for (pos, info), vm in zip(group, _batched_group_metrics(batched, frames, templates,
+                                                                 gts)):
+            vm["video"] = info["name"]
+            per_video[pos] = vm
+    return per_video
+
+
 def _rows(per_video: List[Dict]) -> List[Dict]:
     """The per-video rows without the traces: whole_metrics.csv's rows, and
     what the runners return."""
@@ -181,6 +231,8 @@ def _rows(per_video: List[Dict]) -> List[Dict]:
 
 
 def _write_video_csvs(run_dir: str, per_video: List[Dict]) -> None:
+    if not is_writer():
+        return
     write_csv(os.path.join(run_dir, "whole_metrics.csv"), _rows(per_video))
     rows = []
     for vm in per_video:
@@ -212,21 +264,26 @@ def run_model_on_davis_set(
     chunk: Optional[int] = None,
     batched=None,
 ) -> List[Dict]:
-    """runner.py:13-124. `chunk`: see _eval_one_video."""
-    if batched is not None:
-        raise NotImplementedError(BATCHED_NOT_PORTED)
+    """runner.py:13-124. `chunk`: see _eval_one_video. `batched`: a
+    BatchedGenerator (whole videos spread over its mesh, grouped by
+    resolution; the sequential path's masks and metrics, fps the group's
+    aggregate rate)."""
     run_dir = _result_dir(runname)
-    per_video = []
-    for vi, info in enumerate(dataset.iter_videos()):
-        if max_videos is not None and vi >= max_videos:
-            break
-        video = info["name"]
-        frames = dataset.load_frames(video, info["frames"])
-        gts = [dataset.load_mask(video, f) for f in info["frames"]]
-        vm = _eval_one_video(model, frames, gts[0], gts, chunk=chunk)
-        vm["video"] = video
-        per_video.append(vm)
-    for vm, info in zip(per_video, dataset.iter_videos()):
+    if batched is not None:
+        per_video = _run_batched_with_gt(
+            batched, dataset, max_videos,
+            gts_of=lambda info: [dataset.load_mask(info["name"], f) for f in info["frames"]],
+            template_of=lambda info, gts: gts[0])
+    else:
+        per_video = []
+        for info in _infos(dataset, max_videos):
+            video = info["name"]
+            frames = dataset.load_frames(video, info["frames"])
+            gts = [dataset.load_mask(video, f) for f in info["frames"]]
+            vm = _eval_one_video(model, frames, gts[0], gts, chunk=chunk)
+            vm["video"] = video
+            per_video.append(vm)
+    for vm, info in zip(per_video if is_writer() else [], dataset.iter_videos()):
         video = info["name"]
         if save_masks:
             mask_dir = os.path.join(run_dir, "masks", video)
@@ -255,9 +312,7 @@ def run_model_on_longdata_set(
     batched=None,
 ) -> List[Dict]:
     """runner.py:127-223 — metrics only at annotated frame ids.
-    `chunk`: see _eval_one_video."""
-    if batched is not None:
-        raise NotImplementedError(BATCHED_NOT_PORTED)
+    `chunk`: see _eval_one_video; `batched`: see run_model_on_davis_set."""
     run_dir = _result_dir(runname)
 
     def _gts_of(info) -> List[Optional[np.ndarray]]:
@@ -266,20 +321,21 @@ def run_model_on_longdata_set(
             gts[i] = dataset.load_mask(info["name"], info["frames"][i])
         return gts
 
-    per_video = []
-    infos = []
-    for vi, info in enumerate(dataset.iter_videos()):
-        if max_videos is not None and vi >= max_videos:
-            break
-        video = info["name"]
-        frames = dataset.load_frames(video, info["frames"])
-        gts = _gts_of(info)
-        template = gts[info["test_ids"][0]]
-        vm = _eval_one_video(model, frames, template, gts, chunk=chunk)
-        vm["video"] = video
-        per_video.append(vm)
-        infos.append(info)
-    if save_masks:
+    infos = _infos(dataset, max_videos)
+    if batched is not None:
+        per_video = _run_batched_with_gt(batched, dataset, max_videos, gts_of=_gts_of,
+                                         template_of=lambda info, gts: gts[info["test_ids"][0]])
+    else:
+        per_video = []
+        for info in infos:
+            video = info["name"]
+            frames = dataset.load_frames(video, info["frames"])
+            gts = _gts_of(info)
+            template = gts[info["test_ids"][0]]
+            vm = _eval_one_video(model, frames, template, gts, chunk=chunk)
+            vm["video"] = video
+            per_video.append(vm)
+    if save_masks and is_writer():
         for vm, info in zip(per_video, infos):
             mask_dir = os.path.join(run_dir, "masks", info["name"])
             os.makedirs(mask_dir, exist_ok=True)
@@ -302,13 +358,30 @@ def run_model_on_longvos_set(
 ) -> None:
     """runner.py:226-284 — no metrics; masks saved for external evaluation.
     `chunk`: route propagation through generator_chunked (see
-    _eval_one_video)."""
-    if batched is not None:
-        raise NotImplementedError(BATCHED_NOT_PORTED)
+    _eval_one_video). `batched`: a BatchedGenerator; whole videos then
+    spread over its mesh, one run per resolution (pass `chunk=` to the
+    generator for chunked propagation; this function's `chunk` is then
+    unused), the saved masks those of the sequential path."""
     run_dir = _result_dir(runname)
-    for vi, info in enumerate(dataset.iter_videos()):
-        if max_videos is not None and vi >= max_videos:
-            break
+    infos = _infos(dataset, max_videos)
+
+    def _save(info, masks) -> None:
+        if not is_writer():
+            return
+        mask_dir = os.path.join(run_dir, "masks", info["name"])
+        os.makedirs(mask_dir, exist_ok=True)
+        for f, m in zip(info["frames"], masks):
+            save_palette_mask(m, os.path.join(mask_dir, os.path.splitext(f)[0] + ".png"))
+
+    if batched is not None:
+        for group in _groups_by_resolution(dataset, infos).values():
+            frames = [dataset.load_frames(i["name"], i["frames"]) for _, i in group]
+            templates = [dataset.load_mask(i["name"], i["frames"][i["test_ids"][0]])
+                         for _, i in group]
+            for (_, info), res in zip(group, batched.run(frames, templates)):
+                _save(info, res["masks"])
+        return
+    for info in infos:
         video = info["name"]
         frames = dataset.load_frames(video, info["frames"])
         template = dataset.load_mask(video, info["frames"][info["test_ids"][0]])
@@ -318,7 +391,4 @@ def run_model_on_longvos_set(
         else:
             masks, *_ = model.generator(frames, template)
         model.xmem.clear_memory()
-        mask_dir = os.path.join(run_dir, "masks", video)
-        os.makedirs(mask_dir, exist_ok=True)
-        for f, m in zip(info["frames"], masks):
-            save_palette_mask(m, os.path.join(mask_dir, os.path.splitext(f)[0] + ".png"))
+        _save(info, masks)

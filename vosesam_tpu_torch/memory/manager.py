@@ -54,11 +54,15 @@ def match_memory(
 
     `cfg.fused_read=False` (or top_k > 32) takes the plain chain on any
     device, as the JAX package takes its XLA chain; it counts as a plain
-    call in `kernels.COUNTS`, so a run on the card shows it."""
-    if pcfg is not None and pcfg.memory_axis_shards > 1:
-        raise NotImplementedError("memory-axis-sharded read: multi-device slice")
+    call in `kernels.COUNTS`, so a run on the card shows it.
+    `pcfg.memory_axis_shards` > 1 reads with the memory axis split over the
+    ranks of the default process group (`parallel/memory_shard.py`; the
+    group's size must equal the shard count, M must divide by it), also a
+    plain call."""
     if cfg.top_k_approx:
-        raise NotImplementedError("top_k_approx is a TPU-only (approx_max_k) knob")
+        raise NotImplementedError(
+            "top_k_approx: the approximate top-k threshold is the TPU's lax.approx_max_k; "
+            "the port reads with the exact top-k only")
     h16, w16, ck = qk.shape
     q = qk.reshape(-1, ck)
     e = qe.reshape(-1, ck) if qe is not None else None
@@ -84,7 +88,22 @@ def match_memory(
         mv = mv[:n_live]
         vv = vv[:n_live]
     fused = cfg.fused_read and cfg.top_k <= 32
-    if slice_live and fused:
+    n_shards = pcfg.memory_axis_shards if pcfg is not None else 0
+    if n_shards > 1:
+        # the memory axis split over the ranks of the default group, queries
+        # replicated; exact (gathered candidates + summed softmax parts).
+        # qe=None and qe=ones differ by a per-query constant, which the
+        # top-k and the softmax ignore. No memory-read kernel: a plain call.
+        from vosesam_tpu_torch.parallel.memory_shard import sharded_read
+        from vosesam_tpu_torch.parallel.mesh import world
+
+        if world()[1] != n_shards:
+            raise ValueError(f"memory_axis_shards={n_shards} needs a process group of that "
+                             f"size, not {world()[1]} rank(s)")
+        kernels.COUNTS["plain"] += 1
+        readout_flat, usage = sharded_read(mk, ms, q, e if e is not None else torch.ones_like(q),
+                                           mv, kv[None, :] & vv, cfg.top_k)
+    elif slice_live and fused:
         # every valid slot sits below lt_capacity + work.count in the
         # concat layout, so the kernel never reads past it
         live_end = (lt.capacity if cfg.enable_long_term else 0) + work.count

@@ -22,8 +22,12 @@ the timing); the global block's attention as the encoder runs it
 (`image_encoder._attention` at rect, vit_h widths, bf16, random weights
 from a seed: projections, bias factors, B3 and whatever copies the tree
 makes around it); B6 at the inpainter's shape (x (1, 60, 108, 256) fp32,
-16 groups, offsets of the model's form, radius None and 16); B7 at the
-probe's shape (x (4, 640, 256), fields (4, 512, 144), 128 bins, fp32).
+16 groups, offsets of the model's form, radius None and 16); B6's backward
+through `_backward_kernel` at the trainer's shape (the production case of
+chip_smoke.py's phase 2g: flows of up to 4 pixels and a 10 tanh residual;
+large flows, 9 pixels; B 2); B7 at the probe's shape (x (4, 640, 256),
+fields (4, 512, 144), 128 bins, fp32). `--cases` names the groups to run
+(default: all).
 
 Yardsticks, per call:
   device_ms   torch.profiler's device time, summed over the CUDA kernels of
@@ -217,6 +221,27 @@ def b6_cases(gen) -> dict:
             for r in (None, 16)}
 
 
+def b6_backward_cases(gen) -> dict:
+    """B6's gradient at the trainer's shape, phase 2g's offsets: the
+    production case (flow 4), large flows (flow 9) and B 2, each through
+    the tree's `_backward_kernel` (grad_x's zero fill included)."""
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+
+    h, w, cin, g = 60, 108, 256, 16
+    out = {}
+    for label, b, flow in (("production", 1, 4.0), ("large flows", 1, 9.0), ("B 2", 2, 4.0)):
+        x = torch.randn(b, h, w, cin, generator=gen, device="cuda")
+        resid = 10.0 * torch.tanh(torch.randn(b, h, w, g, 9, 2, generator=gen, device="cuda"))
+        fl = flow * torch.tanh(torch.randn(b, h, w, 2, 1, 1, 2, generator=gen, device="cuda"))
+        off = (resid + fl.expand(b, h, w, 2, g // 2, 9, 2).reshape(b, h, w, g, 9, 2)
+               ).reshape(b, h, w, 2 * g * 9).contiguous()
+        msk = torch.sigmoid(torch.randn(b, h, w, g * 9, generator=gen, device="cuda"))
+        gp = torch.randn(b, h, w, 9, cin, generator=gen, device="cuda")
+        out[f"B6-bwd {label}"] = yardsticks(
+            lambda gp=gp, x=x, off=off, msk=msk: da._backward_kernel(gp, x, off, msk, None))
+    return out
+
+
 def b7_cases(gen) -> dict:
     """The bin-scan probe's own inputs (`binscan_probe.probe_inputs`)."""
     from vosesam_tpu_torch.ops.kernels import binscan_probe as bp
@@ -225,7 +250,11 @@ def b7_cases(gen) -> dict:
     return {"B7 probe": yardsticks(lambda: bp.binscan_probe(x, y0, wy, bp.BINS))}
 
 
-def measure(root: str) -> dict:
+CASES = {"memory_read": (memory_read_cases, 1), "b3": (b3_cases, 2), "encoder": (encoder_case, 3),
+         "b6": (b6_cases, 4), "b7": (b7_cases, 5), "b6_backward": (b6_backward_cases, 6)}
+
+
+def measure(root: str, cases=tuple(CASES)) -> dict:
     """One side's run: this process imports the package of `root`."""
     sys.path[0] = root
     import vosesam_tpu_torch
@@ -235,11 +264,9 @@ def measure(root: str) -> dict:
         raise RuntimeError(f"imported {got}, not the package under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    out.update(memory_read_cases(torch.Generator(device="cuda").manual_seed(1)))
-    out.update(b3_cases(torch.Generator(device="cuda").manual_seed(2)))
-    out.update(encoder_case(torch.Generator(device="cuda").manual_seed(3)))
-    out.update(b6_cases(torch.Generator(device="cuda").manual_seed(4)))
-    out.update(b7_cases(torch.Generator(device="cuda").manual_seed(5)))
+    for name in cases:
+        fn, seed = CASES[name]
+        out.update(fn(torch.Generator(device="cuda").manual_seed(seed)))
     return out
 
 
@@ -263,13 +290,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="root of the other checkout")
     ap.add_argument("--out", help="write every reading here as JSON")
+    ap.add_argument("--cases", nargs="+", choices=sorted(CASES), default=list(CASES),
+                    help="the case groups to run (default: all)")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: the kernels are timed on the card")
         return 1
     if args.measure:
-        print(json.dumps(measure(args.measure)))
+        print(json.dumps(measure(args.measure, args.cases)))
         return 0
     if not args.against or not (Path(args.against) / "vosesam_tpu_torch").is_dir():
         print("--against must name the root of a checkout that holds vosesam_tpu_torch/")
@@ -282,7 +311,8 @@ def main(argv=None) -> int:
     runs = {"against": [], "this": []}
     for side in ORDER:
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure",
-                              roots[side]], cwd=roots[side], capture_output=True, text=True,
+                              roots[side], "--cases", *args.cases], cwd=roots[side],
+                             capture_output=True, text=True,
                              env=dict(os.environ, PYTHONDONTWRITEBYTECODE="1"))
         if res.returncode != 0:
             print(f"{side} ({roots[side]}) failed:\n{res.stdout}\n{res.stderr}")

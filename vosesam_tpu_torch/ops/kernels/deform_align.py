@@ -35,10 +35,16 @@ Gradients: `deform_patches_bounded` is the autograd Function
 `vosesam_deform_patches_backward` (same source; its header gives the
 formula and the design); on the CPU the Function runs the plain forward and
 `deform_patches_backward_plain`, the backward written out in plain PyTorch
-with the kernel's formula. grad_offset and grad_mask are sums over a
-group's channels in a fixed order in the kernel (the same bits in every
-call); grad_x is accumulated with fp32 atomics, so it matches the plain
-backward to rounding only.
+with the kernel's formula. The kernel's design: cg / 4 lanes per
+(pixel, tap, group) sample, each lane one 4-channel chunk, so the lanes of
+a corner add its cg contiguous floats to grad_x in one warp instruction of
+16-byte vector atomics; the lanes' partial sums of grad_offset and
+grad_mask meet in a fixed-order butterfly (the same bits in every call).
+grad_x is accumulated with fp32 atomics whose order changes from call to
+call, so it matches the plain backward to rounding only. A window of grad_x
+in shared memory per tile of output pixels, flushed once, was measured
+instead and dropped: fp32 adds to shared memory are compare-and-swap loops
+on sm_90, so it was slower than the lanes (PERF.md).
 """
 
 from __future__ import annotations
@@ -218,15 +224,16 @@ def occupancy(cin: int, groups: int, vec: int = 4) -> Dict[str, int]:
     return dict(zip(OCCUPANCY_KEYS, info), pixels_per_block=pixels)
 
 
-def backward_occupancy(vec: int = 4) -> Dict[str, int]:
-    """The same report for the backward kernel's instance (one thread per
-    sample, no shared memory)."""
+def backward_occupancy(vec: int = 4, cg: int = 16) -> Dict[str, int]:
+    """The same report for the backward instance a launch at (vec, cg)
+    selects (the lanes kernel, or the scalar one)."""
     fn = _lib().vosesam_deform_backward_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
+        i = ctypes.c_int
+        fn.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
     info = (ctypes.c_int * len(OCCUPANCY_KEYS))()
-    rc = fn(vec, info)
+    rc = fn(vec, cg, info)
     if rc != 0:
         raise RuntimeError(f"deform_align backward occupancy query failed: CUDA error {rc}")
     return dict(zip(OCCUPANCY_KEYS, info))
@@ -294,6 +301,7 @@ def _forward_kernel(x, offset, mask, radius: Optional[int]) -> torch.Tensor:
 
 
 def _backward_kernel(grad, x, offset, mask, radius: Optional[int]):
+    """(grad_x, grad_offset, grad_mask) by the backward kernel."""
     g = mask.shape[-1] // TAPS
     grad, x = grad.contiguous(), x.contiguous()
     offset, mask = offset.contiguous(), mask.contiguous()

@@ -1,6 +1,6 @@
 """Where the time of the memory-read (B1 / B2), global-attention (B3),
-window-attention (B4), deformable-sampling (B6) and bin-scan (B7) kernels
-goes, block by block, on the card:
+window-attention (B4), deformable-sampling (B6, and its backward) and
+bin-scan (B7) kernels goes, block by block, on the card:
 
     python -m vosesam_tpu_torch.ops.kernels.phases
 
@@ -8,9 +8,10 @@ Builds `csrc/memory_read.cu`, `csrc/flash_attention.cu`,
 `csrc/window_attention.cu`, `csrc/deform_align.cu` and
 `csrc/binscan_probe.cu` once more with `-DVOSESAM_PROFILE` (thread 0 of
 every block stamps the global timer at the ends of its phases), runs them at
-the shapes of `chip_smoke.py`'s phases 2, 2b, 2c, 2d and 2e, and prints the median over blocks of each phase in ns, the
-span from the first block's start to the last block's end, and the call's
-device time (torch.profiler) beside it. The product builds carry no stamps.
+the shapes of `chip_smoke.py`'s phases 2, 2b, 2c, 2d, 2g and 2e, and prints
+the median over blocks of each phase in ns, the span from the first
+block's start to the last block's end, and the call's device time
+(torch.profiler) beside it. The product builds carry no stamps.
 """
 
 from __future__ import annotations
@@ -235,6 +236,41 @@ def deform_phases(gen: torch.Generator) -> Dict[str, dict]:
     return out
 
 
+def deform_backward_phases(gen: torch.Generator) -> Dict[str, dict]:
+    """B6's backward at the trainer's shape (phase 2g's production case): a
+    block of 256 lanes, 64 samples at cg 16; its stamps end the geometry and
+    loads, the issue of grad_x's atomics, and the sums' butterfly and
+    stores."""
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+
+    lib = _profile_build("deform_align")
+    saved = _swap_in("deform_align", lib)
+    h, w, cin, g = 60, 108, 256, 16
+    x = torch.randn((1, h, w, cin), generator=gen, device="cuda")
+    resid = 10.0 * torch.tanh(torch.randn((1, h, w, g, 9, 2), generator=gen, device="cuda"))
+    flow = 4.0 * torch.tanh(torch.randn((1, h, w, 2, 1, 1, 2), generator=gen, device="cuda"))
+    off = (resid + flow.expand(1, h, w, 2, g // 2, 9, 2).reshape(1, h, w, g, 9, 2)
+           ).reshape(1, h, w, 2 * g * 9).contiguous()
+    msk = torch.sigmoid(torch.randn((1, h, w, g * 9), generator=gen, device="cuda"))
+    gp = torch.randn((1, h, w, 9, cin), generator=gen, device="cuda")
+    blocks = -(-h * w * 9 * g * (cin // g // 4) // 256)
+    try:
+        fn = lambda: da._backward_kernel(gp, x, off, msk, None)  # noqa: E731
+        device = device_ms(fn, calls=10)
+        fn()
+        torch.cuda.synchronize()
+        rows = _stamps(lib.vosesam_deform_backward_profile, min(blocks, 1 << 16), 4)
+        start = min(r[0] for r in rows)
+        return {"lanes": dict(
+            blocks=blocks, device_ms=device, span_ns=max(r[3] for r in rows) - start,
+            block_ns=_med(rows, lambda r: r[3] - r[0]),
+            last_start_ns=max(r[0] for r in rows) - start,
+            **{k: _med(rows, lambda r, i=i: r[i + 1] - r[i])
+               for i, k in enumerate(("loads_ns", "atomics_ns", "sums_ns"))})}
+    finally:
+        _restore("deform_align", saved)
+
+
 def binscan_phases(gen: torch.Generator) -> Dict[str, dict]:
     """B7 at the probe's shape: x (4, 640, 256), fields (4, 512, 144), 16
     groups of 16 channels, 9 taps, 128 bins, fp32."""
@@ -283,6 +319,7 @@ def main() -> int:
                       "flash_attention": flash_phases(gen),
                       "window_attention": window_phases(gen),
                       "deform_align": deform_phases(gen),
+                      "deform_align_backward": deform_backward_phases(gen),
                       "binscan_probe": binscan_phases(gen)}))
     return 0
 

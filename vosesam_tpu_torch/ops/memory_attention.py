@@ -51,6 +51,26 @@ def get_similarity(
     return sim / math.sqrt(ck)
 
 
+def hierarchical_top_k(sim: torch.Tensor, k: int, chunk: int = 512) -> torch.Tensor:
+    """The k largest values over the last axis, descending, computed per
+    chunk of `chunk` slots (padded with NEG_INF) and then over the chunks'
+    candidates: exact, since the global top-k lies among the per-chunk
+    top-ks (port of `vosesam_tpu/ops/memory_attention.py:63`, which does
+    this because a full `lax.top_k` over M is slow on a TPU; here it is the
+    sharded read's local candidate list)."""
+    m = sim.shape[-1]
+    k = min(k, m)
+    if m <= 2 * chunk:
+        return torch.topk(sim, k, dim=-1).values
+    pad = (-m) % chunk
+    x = sim
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=NEG_INF)
+    x = x.reshape(*sim.shape[:-1], -1, chunk)
+    cand = torch.topk(x, min(k, chunk), dim=-1).values
+    return torch.topk(cand.reshape(*sim.shape[:-1], -1), k, dim=-1).values
+
+
 def topk_softmax(
     sim: torch.Tensor,                # (Q, M) fp32
     valid: Optional[torch.Tensor],    # (M,) or (Q, M) bool

@@ -126,11 +126,19 @@ class Inpainter:
         seed: int = 0,
     ) -> None:
         """Weights: `net` when given, else the official checkpoint when the
-        path names an existing file, else seeded random weights. `mesh`
-        (windows data-parallel over devices) is not part of this port yet."""
+        path names an existing file, else seeded random weights (every rank
+        of a mesh builds the same ones). `mesh`: a `parallel.mesh.Mesh`; the
+        static windows then run data-parallel over its data axis, one group
+        of data size x `window_batch` windows at a time, each rank its share
+        one window at a time (`parallel/inpaint_shard.py`); grouping, tail
+        padding and compositing are otherwise unchanged."""
         if mesh is not None:
-            raise NotImplementedError(
-                "Inpainter(mesh=...): windows sharded over devices are not ported yet")
+            from vosesam_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"Inpainter(mesh=...) takes a parallel.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+        self.mesh = mesh
         self.cfg = cfg
         self.device = resolve_device(device)
         if net is not None:
@@ -152,7 +160,15 @@ class Inpainter:
         tensor each: frames `ids` of the padded device video are gathered and
         run through the generator; slots from `n_valid` on are padding. A
         group of several plans (static windows, one shape) is one batched
-        generator call."""
+        generator call, or with a mesh one window at a time on each rank."""
+        if self.mesh is not None and plans[0][2] is not None:
+            from vosesam_tpu_torch.parallel.inpaint_shard import sharded_predictions
+
+            return sharded_predictions(lambda p: self._predict_local(padded, [p])[0], plans,
+                                       self.mesh, self.cfg.window_batch)
+        return self._predict_local(padded, plans)
+
+    def _predict_local(self, padded: torch.Tensor, plans) -> List[torch.Tensor]:
         dev = padded.device
         idx = torch.as_tensor([list(p[0]) for p in plans], device=dev)        # (B, T)
         valid = None
@@ -191,8 +207,9 @@ class Inpainter:
         """The subset's window plans in anchor order, each (ids, num_local,
         n_valid or None, write_ids), in the groups that run together: static
         plans (one shape for the whole subset) when the config asks for them
-        and the clip is long enough, `window_batch` of them per group; else
-        the reference's variable windows, one per group."""
+        and the clip is long enough, `window_batch` of them per group (with a
+        mesh, data size x `window_batch`); else the reference's variable
+        windows, one per group."""
         cfg = self.cfg
         use_static = (cfg.static_windows and cfg.num_ref == -1
                       and t > 2 * cfg.neighbor_stride + 1)
@@ -202,6 +219,10 @@ class Inpainter:
             plans = [static_window_plan(f, t, cfg.neighbor_stride, cfg.step, r_static)
                      for f in anchors]
             wb = max(1, cfg.window_batch)
+            if self.mesh is not None:
+                from vosesam_tpu_torch.parallel.inpaint_shard import group_size
+
+                wb = group_size(self.mesh, cfg.window_batch)
             return [plans[i:i + wb] for i in range(0, len(plans), wb)]
         groups = []
         for f in anchors:

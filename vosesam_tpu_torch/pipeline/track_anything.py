@@ -75,9 +75,12 @@ class TrackingAnything:
         seed: int = 0,
         e2fgvi_checkpoint: Optional[str] = None,
         save_inner_masks_folder: Optional[str] = None,
+        inpaint_mesh=None,
     ) -> None:
         """`save_inner_masks_folder`: the tracker writes each propagated
-        frame's XMem and refined masks under <folder>/inner/ (`Tracker`)."""
+        frame's XMem and refined masks under <folder>/inner/ (`Tracker`).
+        `inpaint_mesh`: a `parallel.mesh.Mesh`; the inpainter's static
+        windows then run data-parallel over its data axis."""
         self.cfg = cfg or FrameworkConfig()
         self.device = resolve_device(device)
         net, xmem_cfg = load_or_init_xmem(xmem_checkpoint, self.cfg.xmem,
@@ -97,7 +100,8 @@ class TrackingAnything:
             from vosesam_tpu_torch.pipeline.inpaint import Inpainter
 
             self.baseinpainter = Inpainter(e2fgvi_checkpoint, self.cfg.inpainter,
-                                           device=self.device, seed=seed + 2)
+                                           mesh=inpaint_mesh, device=self.device,
+                                           seed=seed + 2)
 
     def first_frame_click(self, image: np.ndarray, points: np.ndarray, labels: np.ndarray,
                           multimask: bool = True):

@@ -6,7 +6,10 @@ long-term memory consolidation + vanishing-mask recovery on 1-3k frame
 videos (blueboy / dressage / rat).
 
   python -m vosesam_tpu_torch.run_longdataset_test --root /path/to/LongDataset \\
-      [--configs baseline both_neg_C] [--device cpu]
+      [--configs baseline both_neg_C] [--device cpu] [--batch [--mesh DPxMP]]
+
+`--batch` / `--mesh`: whole videos spread over the process group, as in
+`run_davis_test`.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import uuid
 
 from vosesam_tpu_torch.eval.datasets import LongVideoDataset
 from vosesam_tpu_torch.eval.runner import format_table, run_model_on_longdata_set
-from vosesam_tpu_torch.run_davis_test import CONFIGS, add_model_flags, make_model
+from vosesam_tpu_torch.parallel.mesh import owned_group
+from vosesam_tpu_torch.run_davis_test import (CONFIGS, add_model_flags, log, make_batched,
+                                               make_model)
 
 
 def main(argv=None) -> None:
@@ -32,13 +37,16 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     dataset = LongVideoDataset(args.root, args.split_file)
-    for name in args.configs:
-        model = make_model(args, CONFIGS[name])
-        runname = f"long_{name}_{uuid.uuid4().hex[:6]}"
-        print(f"=== {runname} ===")
-        rows = run_model_on_longdata_set(runname, model, dataset, save_masks=args.save_masks,
-                                         max_videos=args.max_videos, chunk=args.chunk)
-        print(format_table(rows, ["video", "J_mean", "F_mean", "JF_mean", "fps"]))
+    with owned_group():
+        for name in args.configs:
+            model = make_model(args, CONFIGS[name])
+            runname = f"long_{name}_{uuid.uuid4().hex[:6]}"
+            log(f"=== {runname} ===")
+            rows = run_model_on_longdata_set(runname, model, dataset,
+                                             save_masks=args.save_masks,
+                                             max_videos=args.max_videos, chunk=args.chunk,
+                                             batched=make_batched(args, model))
+            log(format_table(rows, ["video", "J_mean", "F_mean", "JF_mean", "fps"]))
 
 
 if __name__ == "__main__":

@@ -5,7 +5,11 @@ No in-run metrics — palette-PNG masks are saved for the external LVOS
 evaluator (runner.py:226-284 semantics).
 
   python -m vosesam_tpu_torch.run_lvos_test --root /path/to/LVOS [--config both_neg_C]
-      [--device cpu]
+      [--device cpu] [--batch [--mesh DPxMP] [--chunk K]]
+
+`--batch` / `--mesh`: whole videos spread over the process group, as in
+`run_davis_test` (BASELINE config 5, "LVOS batched across a slice"); with
+`--batch`, `--chunk` makes each video run the chunked tracker.
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ import uuid
 
 from vosesam_tpu_torch.eval.datasets import LongVideoDataset
 from vosesam_tpu_torch.eval.runner import run_model_on_longvos_set
-from vosesam_tpu_torch.run_davis_test import CONFIGS, add_model_flags, make_model
+from vosesam_tpu_torch.parallel.mesh import owned_group
+from vosesam_tpu_torch.run_davis_test import (CONFIGS, add_model_flags, log, make_batched,
+                                               make_model)
 
 
 def main(argv=None) -> None:
@@ -30,12 +36,13 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     dataset = LongVideoDataset(args.root, args.split_file)
-    model = make_model(args, CONFIGS[args.config])
-    runname = f"lvos_{args.config}_{uuid.uuid4().hex[:6]}"
-    print(f"=== {runname} ===")
-    run_model_on_longvos_set(runname, model, dataset, max_videos=args.max_videos,
-                             chunk=args.chunk)
-    print(f"masks saved under ./result/{runname}/masks/")
+    with owned_group():
+        model = make_model(args, CONFIGS[args.config])
+        runname = f"lvos_{args.config}_{uuid.uuid4().hex[:6]}"
+        log(f"=== {runname} ===")
+        run_model_on_longvos_set(runname, model, dataset, max_videos=args.max_videos,
+                                 chunk=args.chunk, batched=make_batched(args, model))
+        log(f"masks saved under ./result/{runname}/masks/")
 
 
 if __name__ == "__main__":

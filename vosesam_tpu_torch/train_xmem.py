@@ -5,8 +5,13 @@ end-to-end loop the reference's vestigial trainer was meant to run.
         --batch 4 --grad-accum 2 --save xmem_train.pth [--imset 2017/train.txt] \\
         [--device cpu]
 
-Runs on the card unless `--device cpu`. `--dp` (data parallel over
-devices) is not ported yet and raises. Max-skip curriculum: max_jump steps
+Runs on the card unless `--device cpu`. `--dp`: data parallel over the
+ranks of the process group (each rank samples the same global batch from
+the same seed and trains on its B / world clips; the gradients are
+all-reduced: `training/trainer.py`); one process is a group of one (NCCL on
+the card, gloo with `--device cpu`), n cards take `torchrun
+--nproc_per_node n -m vosesam_tpu_torch.train_xmem ... --dp`; rank 0 logs
+and saves. Max-skip curriculum: max_jump steps
 5 -> 10 -> 15 -> 5 at the standard [10%, 30%, 80%] fractions of the steps.
 `--save` writes a `torch.save` file that `TrackingAnything(xmem_checkpoint=...)`
 loads; `--resume` restores the network, the optimizer and the iteration.
@@ -38,23 +43,40 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="sequential microbatches per optimizer step")
     ap.add_argument("--dp", action="store_true",
-                    help="data parallel over devices (not ported yet)")
+                    help="data parallel over the ranks of the process group")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.dp:
-        raise NotImplementedError("--dp: data-parallel training is not ported yet")
 
+    from vosesam_tpu_torch.parallel import mesh as meshlib
+
+    with meshlib.owned_group():
+        return _train(ap, args)
+
+
+def _train(ap: argparse.ArgumentParser, args: argparse.Namespace) -> int:
     import torch
 
-    from vosesam_tpu_torch.config import FrameworkConfig, XMemConfig
+    from vosesam_tpu_torch.config import FrameworkConfig, ParallelConfig, XMemConfig
     from vosesam_tpu_torch.device import resolve_device
     from vosesam_tpu_torch.eval.datasets import DavisDataset
     from vosesam_tpu_torch.models.xmem.network import xmem_init
+    from vosesam_tpu_torch.parallel import mesh as meshlib
     from vosesam_tpu_torch.training import trainer as T
     from vosesam_tpu_torch.training.data import ClipSampler, ClipSamplerConfig
 
     dev = resolve_device(args.device)
+    mesh = None
+    if args.dp:
+        meshlib.ensure_distributed(dev)
+        mesh = meshlib.make_mesh(ParallelConfig())
+        if args.batch % mesh.data_size:
+            ap.error(f"--batch must divide the {mesh.data_size}-way data axis")
+
+    def log(msg: str) -> None:
+        if meshlib.is_writer():
+            print(msg, flush=True)
+
     cfg = FrameworkConfig(
         xmem=XMemConfig(max_objects=args.max_objects, key_dim=args.key_dim,
                         value_dim=args.value_dim, hidden_dim=args.hidden_dim),
@@ -74,27 +96,27 @@ def main(argv=None) -> int:
     for frac, jump in schedule:
         if start_it >= int(args.steps * frac):
             sampler.set_max_jump(jump)
-            print(f"[resume {start_it}] max_jump -> {jump}", flush=True)
+            log(f"[resume {start_it}] max_jump -> {jump}")
     t0 = time.time()
     for it in range(start_it, args.steps):
         for frac, jump in schedule:
             if it == int(args.steps * frac) and it != start_it:
                 sampler.set_max_jump(jump)
-                print(f"[{it}] max_jump -> {jump}", flush=True)
+                log(f"[{it}] max_jump -> {jump}")
         frames, gt, valid = sampler.sample_batch(args.batch)
         batch = (torch.from_numpy(frames).float().to(dev), torch.from_numpy(gt).to(dev),
                  torch.from_numpy(valid).to(dev))
-        state, aux = T.train_step(state, *batch, cfg, tcfg)
+        state, aux = T.train_step(state, *batch, cfg, tcfg, mesh=mesh)
         if it % args.log_every == 0 or it == args.steps - 1:
             loss = float(aux["loss"])
             if not math.isfinite(loss):
                 raise RuntimeError(f"non-finite loss at step {it}")
             rate = (it + 1 - start_it) / max(time.time() - t0, 1e-9)
-            print(f"[{it}] loss {loss:.4f}  ({rate:.2f} it/s)", flush=True)
+            log(f"[{it}] loss {loss:.4f}  ({rate:.2f} it/s)")
 
-    if args.save:
+    if args.save and meshlib.is_writer():
         T.save_checkpoint(state, args.save)
-        print(f"saved {args.save}", flush=True)
+        log(f"saved {args.save}")
     return 0
 
 

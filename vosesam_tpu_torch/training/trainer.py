@@ -27,6 +27,15 @@ accumulation runs sequential microbatches. Checkpoints are `torch.save`
 files holding the official-name XMem state dict under "network" (so
 `TrackingAnything(xmem_checkpoint=...)` loads them), `it` and the
 optimizer state.
+
+Data parallelism (the JAX trainer's contract: shard the clip batch over the
+mesh's data axis, the gradient all-reduce inserted by jit): `train_step(...,
+mesh=)` takes the global batch, the same on every rank; each rank computes
+the gradients of its B / data-size clips (`grad_accum` microbatches of
+them), one all-reduce sums the gradients (the batch-norm statistics'
+leaves included) and the losses over the data axis, divides them by its
+size, and every rank applies the same AdamW update: one step equals the
+single-process step over all B clips up to the order of the sums.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from vosesam_tpu_torch.models.xmem import losses as L
 from vosesam_tpu_torch.models.xmem import network as xnet
 from vosesam_tpu_torch.ops.aggregate import clip
 from vosesam_tpu_torch.ops.memory_attention import get_similarity, readout
+from vosesam_tpu_torch.parallel import mesh as meshlib
 
 BN_STATS = ("running_mean", "running_var")
 B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adamw's defaults
@@ -260,6 +270,28 @@ def batch_gradients(state: TrainState, frames, gt, obj_valid, cfg: FrameworkConf
     return grads, loss_sum, aux_sum
 
 
+def all_reduce_mean(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                    aux: Dict[str, torch.Tensor], mesh: "meshlib.Mesh"):
+    """The means over the data axis of the gradients, the loss and the aux
+    losses: one all-reduce (SUM) of all of them packed in one buffer, in the
+    leaves' order, divided by the data size."""
+    if mesh.data_group is None:
+        return grads, loss, aux
+    names, aux_names = list(grads), list(aux)
+    flat = torch.cat([grads[k].reshape(-1) for k in names]
+                     + [loss.reshape(1)] + [aux[k].reshape(1) for k in aux_names])
+    torch.distributed.all_reduce(flat, group=mesh.data_group)
+    flat = flat / mesh.data_size
+    out, at = {}, 0
+    for k in names:
+        n = grads[k].numel()
+        out[k] = flat[at:at + n].reshape(grads[k].shape)
+        at += n
+    loss = flat[at]
+    aux = {k: flat[at + 1 + i] for i, k in enumerate(aux_names)}
+    return out, loss, aux
+
+
 def train_step(
     state: TrainState,
     frames: torch.Tensor,       # (B, T, H, W, 3) normalized
@@ -267,10 +299,16 @@ def train_step(
     obj_valid: torch.Tensor,    # (B, O) bool
     cfg: FrameworkConfig,
     tcfg: TrainConfig,
+    mesh: Optional["meshlib.Mesh"] = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step over a clip batch (in place on `state`). Returns
-    the state and the batch's mean losses ("loss", "ce", "dice", "total")."""
+    the state and the batch's mean losses ("loss", "ce", "dice", "total").
+    With `mesh`, data parallel over its data axis (the module docstring)."""
+    if mesh is not None:
+        frames, gt, obj_valid = meshlib.shard_batch((frames, gt, obj_valid), mesh)
     grads, loss, aux = batch_gradients(state, frames, gt, obj_valid, cfg, tcfg)
+    if mesh is not None:
+        grads, loss, aux = all_reduce_mean(grads, loss, aux, mesh)
     apply_adamw(state, grads, tcfg)
     state.it += 1
     aux = dict(aux)
