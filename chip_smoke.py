@@ -127,9 +127,10 @@ Phases (each one that fails exits non-zero):
   11. the XMem trainer: the full-width recipe (XMem-s012, B 4, T 8, crop
      384, grad_accum 2, remat, fp32) on a synthetic 480x854 tree through
      `ClipSampler` for 5 steps with finite losses, ms per step and peak
-     memory; at toy dims with TF32 off, one step on the card against the
-     same step on the CPU and grad_accum 2 against the full batch; a card
-     checkpoint reloads.
+     memory; two more steps with a `StageTimer` (data, forward, loss,
+     backward, optimizer, ms per step); at toy dims with TF32 off, one step
+     on the card against the same step on the CPU and grad_accum 2 against
+     the full batch; a card checkpoint reloads.
   12. the E2FGVI GAN trainer: `InpainterConfig()` (E2FGVI-HQ, 8 focal
      blocks), T 8 (5 local + 3 non-local) at 240x432 from
      `InpaintClipSampler` on a synthetic 480x854 tree, remat, fp32 (TF32
@@ -153,9 +154,25 @@ Phases (each one that fails exits non-zero):
      shard and the gradients' all-reduce bit-equal to their inputs, the
      step bit-equal to the non-DP step, both under
      torch.use_deterministic_algorithms (without it two steps on the card
-     differ, logged); (f) the group destroyed, its time logged.
+     differ, logged); (f) the SAM encoder's tensor parallelism (SAM-HQ
+     vit_h, rect 36x64 tokens, the window kernel): at model size 1 in this
+     group the encode is bit-equal to the unsharded one; at model size 2,
+     two ranks of a gloo group on this card (`run_ranks(...,
+     backend="gloo")`): each encode 4 B3 and 28 B4 launches at 8 heads and
+     no plain call, bf16 within TP_BF16_ATOL on TP_BF16_SHARE of the
+     embedding, fp32 within TP_FP32_TOL, the decoder's masks >= 99.9%
+     equal in fp32 and >= 99% in bf16 (phase 5's bf16 bound, C16), the
+     wall ms of a model-2 encode beside the unsharded one; (g)
+     the group destroyed, its time logged.
+  14. the bench: `python -m vosesam_tpu_torch.bench` in this process at
+     BENCH_FRAMES=16 (3 reps, the default: the long-term memory fills in
+     the second), every other knob at its default and every ported row on
+     (the stage table, `interactive_ms`, the inpaint window), TF32
+     convolutions as the bench runs alone: the line parses, fps > 0, the
+     stage keys and extras present, `lt_count` > 0, `mfu_vs_peak` in
+     (0, 1], B1, B3 and B6 launched and no plain call; kept in `--out`.
 Kernel launch counts are set to 0 right before each main-path run (phases
-3, 5, 7, 8, 9, 10, each step of 12, and 13's runs) and read right after;
+3, 5, 7, 8, 9, 10, each step of 12, 13's runs and 14) and read right after;
 the `kernels` line sums them (B7, a probe on no product path, counts its
 own run in phase 2e; B6's backward counts phase 12's steps).
 The last two lines are the `kernels` JSON line and the result line
@@ -2658,13 +2675,15 @@ def _step_diff(torch, a, b):
                                        if not k.endswith("num_batches_tracked")))
 
 
-def phase_train(torch, card: str, n_steps: int = 5):
+def phase_train(torch, card: str, n_steps: int = 5, n_timed: int = 2):
     """The XMem trainer on the card. The full-width recipe on a synthetic
     480x854 DAVIS tree through `ClipSampler`: XMem-s012 dims, 3 object
     slots, B 4, T 8, crop 384, `grad_accum` 2, remat on, fp32 (PyTorch's
     default precision: TF32 convolutions), `n_steps` steps with finite
-    losses; ms per step (steps after the first) and peak memory. Then, at
-    toy dims with TF32 off for matmuls and cuDNN and deterministic cuDNN
+    losses; ms per step (steps after the first) and peak memory; then
+    `n_timed` more steps with a `StageTimer` (data, forward, loss,
+    backward, optimizer: ms per step). Then, at toy dims with TF32 off for
+    matmuls and cuDNN and deterministic cuDNN
     algorithms (ROADMAP C20): one step on the card against the same step on
     the CPU, and `grad_accum` 2 against the full batch on the card, each
     within the TRAIN_* tolerances; a checkpoint saved on the card reloads
@@ -2678,6 +2697,7 @@ def phase_train(torch, card: str, n_steps: int = 5):
     from vosesam_tpu_torch.training import trainer as T
     from vosesam_tpu_torch.training.data import ClipSampler, ClipSamplerConfig
     from vosesam_tpu_torch.utils.checkpoint import load_xmem_checkpoint
+    from vosesam_tpu_torch.utils.profiling import StageTimer
 
     out = dict(card=card)
     cfg = FrameworkConfig(xmem=XMemConfig(max_objects=3), dtype="float32")
@@ -2716,6 +2736,31 @@ def phase_train(torch, card: str, n_steps: int = 5):
             f"remat, fp32): {statistics.median(times[1:]):.1f} ms per step (steps 2-{n_steps}, "
             f"median; {[round(x, 1) for x in times]}), peak {peak:.2f} GiB, losses {losses}")
 
+        # where a step's time goes: `n_timed` more steps with a StageTimer
+        # (each stage syncs at its end, so host and device no longer overlap)
+        timer, timed = StageTimer(), []
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            for _ in range(n_timed):
+                t = time.perf_counter()
+                with timer.stage("data"):
+                    frames, gt, valid = sampler.sample_batch(4)
+                    batch = (torch.from_numpy(frames).float().cuda(),
+                             torch.from_numpy(gt).cuda(), torch.from_numpy(valid).cuda())
+                    timer.record(batch)
+                state, aux = T.train_step(state, *batch, cfg, tcfg, timer=timer)
+                check(np.isfinite(float(aux["loss"])), f"train: timed step loss {aux['loss']}")
+                timed.append((time.perf_counter() - t) * 1e3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow_tf32
+        stages = {k: v * 1e3 / n_timed for k, v in timer.totals.items()}
+        out.update(stage_ms_per_step=stages, timed_step_ms=timed, stage_counts_per_step={
+            k: v / n_timed for k, v in timer.counts.items()})
+        log(f"[train] stage ms per step over {n_timed} timed steps (data; forward and loss "
+            f"per frame; backward per clip, with remat's recompute; optimizer; each synced at "
+            f"its end): {json.dumps({k: round(v, 1) for k, v in stages.items()})}, summed "
+            f"{sum(stages.values()):.1f} ms; the timed steps {[round(x, 1) for x in timed]} ms")
+
         # a checkpoint saved on the card reloads
         path = os.path.join(tmp, "xmem_train.pth")
         T.save_checkpoint(state, path)
@@ -2727,7 +2772,7 @@ def phase_train(torch, card: str, n_steps: int = 5):
               "train: the reloaded network differs")
         fresh = T.init_train_state(xmem_init(cfg.xmem, seed=1, device="cuda"), tcfg)
         T.load_checkpoint(path, fresh)
-        check(fresh.it == n_steps and fresh.count == n_steps
+        check(fresh.it == n_steps + n_timed and fresh.count == n_steps + n_timed
               and all(torch.equal(fresh.mu[k], state.mu[k]) for k in state.mu),
               "train: load_checkpoint did not restore the optimizer")
         del state, fresh, net
@@ -2943,6 +2988,107 @@ MULTI_AGREEMENT = 0.999   # masks of two runs of the same code, where cuDNN may
 SHARDED_READ_TOL = 1e-4   # the sharded read against the single read (JAX's test's)
 
 
+# The SAM encoder's tensor parallelism (phase 13 (f)): SAM-HQ vit_h at the
+# rect encode (36x64 tokens) with the window kernel, against the unsharded
+# encode of the same weights on the same card
+TP_FP32_TOL = 2e-4       # max |diff| of the fp32 embedding (JAX's own TP test's)
+TP_BF16_ATOL = 0.1       # bf16 embedding: |diff| within this ...
+TP_BF16_SHARE = 0.999    # ... on this share of the elements (by share, as C8; PERF.md)
+# SAM-HQ masks decoded from the TP embedding against the unsharded one's:
+# in fp32; in bf16 at phase 5's bound for two bf16 encodes of one function
+# (C16), since random-weight SAM's logits sit near 0 over large areas and
+# bf16 rounding alone flips some (the unsharded bf16 masks against the fp32
+# ones are logged beside it)
+TP_MASK_AGREEMENT = 0.999
+TP_BF16_MASK_AGREEMENT = 0.99
+
+
+def _tp_encode_stats(torch, predictor, sam, tp, frame, scfg):
+    """The TP encode against the unsharded one on `frame`: embedding and
+    early-feature differences, and the agreement of every mask token the
+    decoder computes from each for three click packs; and the unsharded
+    masks."""
+    got = predictor.encode_image(tp, frame, scfg)
+    want = predictor.encode_image(sam, frame, scfg)
+    d = (got.embedding.float() - want.embedding.float()).abs()
+    di = (got.interm.float() - want.interm.float()).abs()
+    dev = frame.device
+    coords = torch.tensor([[[300.0, 200.0], [0, 0]], [[680.0, 90.0], [0, 0]],
+                           [[300.0, 200.0], [680.0, 90.0]]], device=dev)
+    labels = torch.tensor([[1, -1], [1, -1], [1, 0]], device=dev)
+    mg = predictor.predict(tp, got, coords, labels, None, scfg).masks
+    mw = predictor.predict(sam, want, coords, labels, None, scfg).masks
+    return dict(max_abs_diff=float(d.max()), interm_max_abs_diff=float(di.max()),
+                share_within_bf16_atol=float((d <= TP_BF16_ATOL).double().mean()),
+                embedding_abs_max=float(want.embedding.float().abs().max()),
+                mask_agreement=float((mg == mw).double().mean()),
+                mask_tokens=int(mg.shape[1])), mw
+
+
+def _tp_rank(reps: int):
+    """One rank of the model-2 TP encode, spawned by `run_ranks(...,
+    backend="gloo")`: two ranks share the card. Per dtype (bf16, then fp32;
+    TF32 off): SAM-HQ vit_h from seed 1 (the facade's), one 480x854 frame,
+    the TP encode with kernel counts from 0 around one encode; the wall ms
+    of `reps` encodes (the ranks in step, by barriers); on rank 0 the
+    unsharded encode's ms and `_tp_encode_stats`."""
+    import torch
+    import torch.distributed as dist
+
+    from vosesam_tpu_torch.config import ParallelConfig
+    from vosesam_tpu_torch.models.sam import predictor
+    from vosesam_tpu_torch.parallel import mesh as meshlib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    pcfg = ParallelConfig(model_parallel=2)
+    mesh = meshlib.make_mesh(pcfg)
+    frame = torch.from_numpy(moving_frames(1, 480, 854, seed=5)).cuda()
+    out = dict(rank=rank, shape=mesh.shape, backend=dist.get_backend(),
+               model_group=dist.get_process_group_ranks(mesh.model_group))
+    masks = {}
+    for dtype in ("bfloat16", "float32"):
+        scfg = _main_cfg(dtype, window_impl="pallas").sam
+        sam = predictor.sam_init(scfg, seed=1, device="cuda", dtype=getattr(torch, dtype))
+        tp = meshlib.shard_sam_params_tp(sam, mesh, pcfg)
+        enc = lambda s: predictor.encode_image(s, frame, scfg)       # noqa: E731
+        enc(tp)                                                      # warm-up
+        torch.cuda.synchronize()
+        _reset_all()
+        emb = enc(tp)
+        torch.cuda.synchronize()
+        res = dict(counts=_read_all(), heads=tp.image_encoder.blocks[0].attn.heads,
+                   finite=bool(torch.isfinite(emb.embedding.float()).all()))
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            emb = enc(tp)
+        torch.cuda.synchronize()
+        dist.barrier()
+        res["tp_encode_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+        if rank == 0:
+            enc(sam)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                enc(sam)
+            torch.cuda.synchronize()
+            res["unsharded_encode_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+            stats, masks[dtype] = _tp_encode_stats(torch, predictor, sam, tp, frame, scfg)
+            res.update(stats)
+        else:
+            enc(tp)              # rank 0's stats run one more TP encode
+        dist.barrier()
+        out[dtype] = res
+        del sam, tp, emb
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["unsharded_bf16_vs_fp32_mask_agreement"] = float(
+            (masks["bfloat16"] == masks["float32"]).double().mean())
+    return out
+
+
 def _mask_agreement(a, b) -> float:
     """The share of equal pixels over two lists of masks of equal shapes."""
     same = sum(int((x == y).sum()) for x, y in zip(a, b))
@@ -2968,7 +3114,9 @@ def phase_multi_device(torch, card: str, reference: dict):
     unsharded static path; (d) `sharded_memory_read_local` at phase 2's
     shapes against the single read; (e) one DP XMem toy step bit-equal to
     the non-DP step under deterministic algorithms (the shard and the
-    all-reduce of one rank are identities); (f) the group destroyed. Kernel counts are set to 0 before each run and read after."""
+    all-reduce of one rank are identities); (f) the SAM encoder's tensor
+    parallelism at model size 1 and 2 (`_tp_step`); (g) the group
+    destroyed. Kernel counts are set to 0 before each run and read after."""
     import shutil
     import tempfile
 
@@ -3187,6 +3335,10 @@ def phase_multi_device(torch, card: str, reference: dict):
         check(dp[1] == single[1] and not any(dp_diff.values()),
               f"multi-device DP step: loss {dp[1]} vs {single[1]}, {dp_diff} from the non-DP "
               f"step")
+
+        # (f) the SAM encoder's tensor parallelism: at model size 1 in this
+        # NCCL group, then at model size 2 in two gloo ranks on this card
+        out["f"] = _tp_step(torch, mesh, counted, launches)
     finally:
         os.chdir(here)
         t0 = time.time()
@@ -3195,9 +3347,134 @@ def phase_multi_device(torch, card: str, reference: dict):
         shutil.rmtree(tmp, ignore_errors=True)
     check(not dist.is_initialized(), "multi-device: the group outlived its phase")
     out.update(launches=launches, seconds=time.time() - t_phase)
-    log(f"[multi] (f) group destroyed in {out['destroy_s']:.3f} s; phase 13 took "
+    log(f"[multi] (g) group destroyed in {out['destroy_s']:.3f} s; phase 13 took "
         f"{out['seconds']:.1f} s; launches {json.dumps(launches)}")
     return out
+
+
+# ------------------------------------------------------ the bench (A14)
+
+BENCH_KEYS = ("metric", "value", "unit", "fps_median", "fps_runs", "lt_count",
+              "stage_ms_per_frame", "encode_grid", "encode_tflops", "mfu_vs_peak",
+              "interactive_ms", "inpaint_ms_per_window", "inpaint_ms_per_output_frame",
+              "peak_memory_bytes", "device")
+
+
+def phase_bench(torch, card: str, frames: int = 16):
+    """`python -m vosesam_tpu_torch.bench` in this process (`bench.run`) at
+    BENCH_FRAMES=`frames` with every other knob at its default (3 reps of
+    the continued rollout: at 16 frames a rep the long-term memory fills
+    during the second) and every ported row on, at PyTorch's default
+    precision (TF32 convolutions) as the bench runs alone: the JSON line
+    parses, fps > 0, the stage table and the extras present, `lt_count` >
+    0, `mfu_vs_peak` in (0, 1]. Kernel counts from 0 around the run."""
+    from vosesam_tpu_torch import bench
+    from vosesam_tpu_torch.ops.kernels import deform_align as da
+
+    env = dict(bench.DEFAULTS, BENCH_FRAMES=str(frames))
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        torch.cuda.synchronize()
+        _reset_all()
+        da.reset_counts()
+        t0 = time.time()
+        line = bench.run(env, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+    counts = dict(_read_all(), deform_patches_bounded=da.COUNTS["deform_patches_bounded"])
+    counts["plain"] += da.COUNTS["plain"]
+    text = json.dumps(line)
+    parsed = json.loads(text)
+    missing = [k for k in BENCH_KEYS if k not in parsed]
+    check(not missing, f"bench: keys missing {missing}")
+    check(parsed["unit"] == "fps" and parsed["value"] > 0, f"bench: {parsed['value']} fps")
+    check(set(parsed["stage_ms_per_frame"]) == {"encode", "xmem", "encode_refine", "total"}
+          and all(v > 0 for v in parsed["stage_ms_per_frame"].values()),
+          f"bench: stages {parsed['stage_ms_per_frame']}")
+    check(parsed["lt_count"] > 0, f"bench: long-term memory unused (lt_count "
+                                  f"{parsed['lt_count']})")
+    check(0.0 < parsed["mfu_vs_peak"] <= 1.0, f"bench: mfu_vs_peak {parsed['mfu_vs_peak']}")
+    check(parsed["device"] == card, f"bench: device {parsed['device']!r} vs {card!r}")
+    check(counts["plain"] == 0 and counts["fused_memory_read_shared"] > 0
+          and counts["flash_attention_relpos"] > 0 and counts["deform_patches_bounded"] > 0,
+          f"bench: launches {counts}")
+    log(f"[bench] {card}; python -m vosesam_tpu_torch.bench at BENCH_FRAMES={frames} in "
+        f"{seconds:.1f} s: {text}")
+    log(f"[bench] launches {json.dumps(counts)}")
+    return dict(line=parsed, seconds=seconds, launches=counts)
+
+
+def _tp_step(torch, mesh, counted, launches, reps: int = 5):
+    """Phase 13 (f). Model size 1: `shard_sam_params_tp` over phase 13's
+    (1 x 1) mesh returns the SAM it was given, so the encode is bit-equal
+    to the unsharded one (B3 and B4 launched, no plain call). Model size 2:
+    `_tp_rank` in two ranks of a gloo group on this card (NCCL refuses two
+    ranks on one device): per rank and encode 4 B3 and 28 B4 launches at 8
+    heads, no plain call; bf16 within TP_BF16_ATOL on TP_BF16_SHARE of the
+    embedding, fp32 within TP_FP32_TOL; the decoder's masks from each
+    embedding agree on TP_MASK_AGREEMENT of the pixels in fp32 and on
+    TP_BF16_MASK_AGREEMENT in bf16. The wall ms of a
+    model-2 encode beside the unsharded one: two ranks on one card show no
+    scaling."""
+    from vosesam_tpu_torch.config import ParallelConfig
+    from vosesam_tpu_torch.models.sam import predictor
+    from vosesam_tpu_torch.parallel import mesh as meshlib
+
+    scfg = _main_cfg("bfloat16", window_impl="pallas").sam
+    sam = predictor.sam_init(scfg, seed=1, device="cuda", dtype=torch.bfloat16)
+    frame = torch.from_numpy(moving_frames(1, 480, 854, seed=5)).cuda()
+    one = meshlib.shard_sam_params_tp(sam, mesh, ParallelConfig())
+    want = predictor.encode_image(sam, frame, scfg)
+    got, counts = counted("tp_model1", lambda: predictor.encode_image(one, frame, scfg))
+    bitequal = (one is sam and torch.equal(got.embedding, want.embedding)
+                and torch.equal(got.interm, want.interm))
+    check(bitequal and counts["flash_attention_relpos"] == GLOBAL_BLOCKS
+          and counts["window_attention_relpos"] == WINDOWED_BLOCKS,
+          f"TP at model size 1: bit-equal {bitequal}, launches {counts}")
+    res = dict(model1=dict(bitequal=bitequal, launches=counts))
+    log(f"[multi] (f) TP at model size 1 (phase 13's NCCL group): the encode is bit-equal "
+        f"to the unsharded one; launches {json.dumps(counts)}")
+    del sam, one, got, want
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    ranks = meshlib.run_ranks(_tp_rank, 2, reps, device="cuda", backend="gloo", timeout_s=900)
+    res["model2_s"] = time.time() - t0
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["shape"] == (1, 2) and r["model_group"] == [0, 1],
+              f"TP ranks: {r['backend']} {r['shape']} {r['model_group']}")
+        for dtype in ("bfloat16", "float32"):
+            c = r[dtype]["counts"]
+            check(r[dtype]["finite"] and r[dtype]["heads"] == 8, f"TP rank {r['rank']} {dtype}: "
+                  f"finite {r[dtype]['finite']}, heads {r[dtype]['heads']}")
+            check(c["flash_attention_relpos"] == GLOBAL_BLOCKS
+                  and c["window_attention_relpos"] == WINDOWED_BLOCKS and c["plain"] == 0,
+                  f"TP rank {r['rank']} {dtype}: launches per encode {c}")
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+    bf, fp = ranks[0]["bfloat16"], ranks[0]["float32"]
+    res["model2"] = [{k: r[k] for k in ("bfloat16", "float32")} for r in ranks]
+    log(f"[multi] (f) TP at model size 2, two gloo ranks on the card: bf16 "
+        f"{json.dumps({k: v for k, v in bf.items() if k != 'counts'})}; fp32 "
+        f"{json.dumps({k: v for k, v in fp.items() if k != 'counts'})}; launches per rank "
+        f"and encode {json.dumps(bf['counts'])}; {res['model2_s']:.1f} s; a model-2 encode "
+        f"{bf['tp_encode_ms']:.1f} ms (rank 0) against the unsharded "
+        f"{bf['unsharded_encode_ms']:.1f} ms: two ranks on one card show no scaling; the "
+        f"unsharded bf16 masks against the fp32 ones: "
+        f"{ranks[0]['unsharded_bf16_vs_fp32_mask_agreement']}")
+    res["unsharded_bf16_vs_fp32_mask_agreement"] = ranks[0]["unsharded_bf16_vs_fp32_mask_agreement"]
+    check(fp["max_abs_diff"] <= TP_FP32_TOL and fp["interm_max_abs_diff"] <= TP_FP32_TOL,
+          f"TP fp32: max |diff| {fp['max_abs_diff']} / {fp['interm_max_abs_diff']} above "
+          f"{TP_FP32_TOL}")
+    check(bf["share_within_bf16_atol"] >= TP_BF16_SHARE,
+          f"TP bf16: {bf['share_within_bf16_atol']} of the embedding within {TP_BF16_ATOL}")
+    check(fp["mask_agreement"] >= TP_MASK_AGREEMENT
+          and bf["mask_agreement"] >= TP_BF16_MASK_AGREEMENT,
+          f"TP masks: agreement fp32 {fp['mask_agreement']}, bf16 {bf['mask_agreement']}")
+    return res
 
 
 def _profile_frames(torch, step, n_prof: int):
@@ -3218,9 +3495,10 @@ def _profile_frames(torch, step, n_prof: int):
     rows = [dict(name=e.key[:90], ms_per_frame=e.self_device_time_total / 1e3 / n_prof,
                  calls_per_frame=e.count / n_prof) for e in top]
     # device kernels of interest by a part of their name: the port's own
-    # attention kernels and the fp32 FFMA GEMMs (the rel-pos factors)
+    # attention kernels, the fp32 FFMA GEMMs (the rel-pos factors), B6 and
+    # B6-bwd (`deform_bwd_lanes_kernel`, `deform_bwd_sample_kernel`)
     by_name = {}
-    for part in ("window_relpos", "flash_relpos", "ffma", "deform_patches"):
+    for part in ("window_relpos", "flash_relpos", "ffma", "deform_patches", "deform_bwd"):
         hits = [e for e in events if part in e.key]
         by_name[part] = dict(
             ms_per_frame=sum(e.self_device_time_total for e in hits) / 1e3 / n_prof,
@@ -3362,11 +3640,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         record["multi_device"] = phase_multi_device(torch, record["card"],
                                                     record["eval"].pop("reference"))
-        serving = (record["serve"]["launches"], record["serve"]["app"]["launches"])
+        torch.cuda.empty_cache()
+        record["bench"] = phase_bench(torch, record["card"])
+        serving = (record["serve"]["launches"], record["serve"]["app"]["launches"],
+                   record["bench"]["launches"])
         multi = record["multi_device"]["launches"]
         # launches: the sum over the main-path runs (phase 3, each of phase
         # 5's runs, phase 7, phase 9's runs, phase 10's requests and its app
-        # session, phase 13's runs), each counted from 0 right before the run
+        # session, phase 13's runs, phase 14's bench), each counted from 0
+        # right before the run
         for kr in kernels:
             kr["launches"] = counts.get(kr["name"], 0) + sum(
                 r["launches"][kr["name"]] for r in record["main_path"].values()
@@ -3374,9 +3656,9 @@ def main() -> int:
                 kr["name"], 0) + sum(c.get(kr["name"], 0) for c in serving) + multi.get(
                 kr["name"], 0)
             check(kr["launches"] > 0, f"{kr['name']} never launched on the main path")
-        # B6: the sum over phase 8's inpaint runs, phase 10's and phase 12's
-        # training steps and phase 13's inpaint, each counted from 0; its
-        # backward: phase 12's
+        # B6: the sum over phase 8's inpaint runs, phase 10's requests and
+        # app session, phase 12's training steps, phase 13's inpaint and phase
+        # 14's bench, each counted from 0; its backward: phase 12's
         trained = record["inpaint_train"]["launches"]
         b6["launches"] = record["inpaint"]["b6_launches"] + sum(
             c["deform_patches_bounded"] for c in serving) + trained["deform_patches_bounded"] \

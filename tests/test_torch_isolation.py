@@ -45,6 +45,12 @@ def test_every_file_is_scanned():
     assert len(FILES) > 50
 
 
+def test_the_profiling_bench_and_debug_plot_modules_are_scanned():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"vosesam_tpu_torch/bench.py", "vosesam_tpu_torch/utils/profiling.py",
+            "vosesam_tpu_torch/viz/debug_plots.py"} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_import_of_jax_or_the_jax_package(path):
     bad = [f"{path.name}:{line} imports {name}" for line, name in _imports(path)

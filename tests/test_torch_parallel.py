@@ -171,8 +171,17 @@ def test_single_process_mesh_and_shard_batch():
 
 
 def test_tensor_parallel_and_approx_top_k_raise_naming_what_is_missing():
-    with pytest.raises(NotImplementedError, match="A13b"):
-        meshlib.shard_sam_params_tp(None, meshlib.make_mesh(ParallelConfig()), ParallelConfig())
+    """Tensor parallelism over a model axis without a process group raises
+    (tests/test_torch_parallel_tp.py holds the sharded encoder); the
+    TPU-only approximate top-k raises."""
+    from vosesam_tpu_torch.config import SAMConfig
+    from vosesam_tpu_torch.models.sam.predictor import Sam
+
+    sam = Sam(SAMConfig(model_type="vit_b", image_size=64,
+                        vit_dims=(("vit_b", 64, 2, 2, (1,)),)))
+    two = meshlib.make_mesh(ParallelConfig(model_parallel=2), ranks=range(2))
+    with pytest.raises(ValueError, match="no process group"):
+        meshlib.shard_sam_params_tp(sam, two, ParallelConfig(model_parallel=2))
     mcfg = MemoryConfig(**dict(ROLL_MEM, top_k_approx=True))
     st = trings.init_memory(mcfg, XMemConfig(**ROLL_XM), ROLL_HW)
     q = torch.zeros(ROLL_HW + (16,))

@@ -18,6 +18,10 @@ as it is an XLA path in JAX: one QK matmul in the activations' dtype with
 the rel-pos bias folded in as extra lanes, fp32 softmax, cast to v's dtype,
 matmul; "xla" keeps fp32 scores and a broadcast bias add. As in JAX, a
 frame that is a single window takes the "xla" path whatever the impl.
+
+An encoder sharded by `parallel/mesh.py:shard_sam_params_tp` holds a
+slice of each block's heads and MLP width: its attention and kernels run
+on the local heads, and proj and lin2 are summed over the model group.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -38,9 +43,11 @@ from vosesam_tpu_torch.ops.kernels import window_attention as wa
 
 
 class _Attention(nn.Module):
+    tp_group = None      # the model group of a tensor-parallel encoder
+
     def __init__(self, dim: int, heads: int, rel_size: int, head_dim: int):
         super().__init__()
-        self.heads = heads
+        self.heads = heads       # this rank's heads
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
         self.rel_pos_h = nn.Parameter(torch.zeros(rel_size, head_dim))
@@ -48,6 +55,8 @@ class _Attention(nn.Module):
 
 
 class _MLP(nn.Module):
+    tp_group = None
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.lin1 = nn.Linear(dim, hidden)
@@ -126,16 +135,30 @@ def factorized_rel_pos_bias(q: torch.Tensor, rel_pos_h, rel_pos_w,
     return bias_h.reshape(b, heads, h * w, h), bias_w.reshape(b, heads, h * w, w)
 
 
+def _row_parallel(x: torch.Tensor, lin: nn.Linear, group) -> torch.Tensor:
+    """`linear` of a row-parallel layer: this rank's partial product, summed
+    over the model group by one all-reduce, the bias added once after it.
+    Without a group, `linear` itself (the unsharded encoder's ops)."""
+    if group is None:
+        return linear(x, lin)
+    y = F.linear(x, lin.weight.to(x.dtype))
+    dist.all_reduce(y, group=group)
+    return y + lin.bias.to(y.dtype)
+
+
 def _attention(x: torch.Tensor, attn: _Attention, hw: Tuple[int, int],
                global_block: bool, cfg: SAMConfig,
                windows_per_frame: Optional[int] = None) -> torch.Tensor:
     """x (B, h, w, C) tokens of B windows (windowed) or B frames (global).
     `windows_per_frame` (default: all B windows are one frame's) picks the
     windowed path per frame, as JAX does under `vmap`: a frame of one window
-    keeps fp32 scores ("xla") whatever the impl (image_encoder.py:150-225)."""
+    keeps fp32 scores ("xla") whatever the impl (image_encoder.py:150-225).
+    Under tensor parallelism `attn` holds this rank's heads: the attention
+    runs on them at the local width heads·hd, and proj sums over ranks."""
     b, h, w, c = x.shape
     heads = attn.heads
-    hd = c // heads
+    hd = attn.rel_pos_h.shape[1]
+    cl = heads * hd
     n = h * w
     qkv = linear(x.reshape(b, n, c), attn.qkv).reshape(b, n, 3, heads, hd)
     q, k, v = qkv.unbind(2)
@@ -148,7 +171,8 @@ def _attention(x: torch.Tensor, attn: _Attention, hw: Tuple[int, int],
             out = fa.flash_attention_relpos(*args)
         else:
             out = fa.flash_attention_relpos_plain(*args)
-        return linear(out.transpose(1, 2).reshape(b, n, c), attn.proj).reshape(b, h, w, c)
+        return _row_parallel(out.transpose(1, 2).reshape(b, n, cl), attn.proj,
+                             attn.tp_group).reshape(b, h, w, c)
     impl = cfg.windowed_attention_impl
     if (b if windows_per_frame is None else windows_per_frame) == 1:
         impl = "xla"
@@ -158,7 +182,8 @@ def _attention(x: torch.Tensor, attn: _Attention, hw: Tuple[int, int],
                   else wa.window_attention_relpos)
         out = kernel(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                      bias_h.contiguous(), bias_w.contiguous(), hw)     # (b, heads, n, hd)
-        return linear(out.transpose(1, 2).reshape(b, n, c), attn.proj).reshape(b, h, w, c)
+        return _row_parallel(out.transpose(1, 2).reshape(b, n, cl), attn.proj,
+                             attn.tp_group).reshape(b, h, w, c)
     scale = 1.0 / math.sqrt(hd)
     if impl == "xla_fused_bias":
         s = _fused_bias_scores(q, k, attn, hw, scale)
@@ -167,8 +192,8 @@ def _attention(x: torch.Tensor, attn: _Attention, hw: Tuple[int, int],
         s = torch.einsum("bqnc,bknc->bnqk", q.float(), k.float()) * scale
         s = s + (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, heads, n, n)
     p = torch.softmax(s.float(), dim=-1).to(v.dtype)
-    out = torch.einsum("bnqk,bknc->bqnc", p, v).reshape(b, n, c)
-    return linear(out, attn.proj).reshape(b, h, w, c)
+    out = torch.einsum("bnqk,bknc->bqnc", p, v).reshape(b, n, cl)
+    return _row_parallel(out, attn.proj, attn.tp_group).reshape(b, h, w, c)
 
 
 def _fused_bias_scores(q: torch.Tensor, k: torch.Tensor, attn: _Attention,
@@ -233,7 +258,8 @@ def _block(x: torch.Tensor, blk: _Block, cfg: SAMConfig) -> torch.Tensor:
         y = _attention(y, blk.attn, (x.shape[1], x.shape[2]), True, cfg)
     x = shortcut + y
     y = layer_norm(x, blk.norm2)
-    return x + linear(gelu_fast(linear(y, blk.mlp.lin1)), blk.mlp.lin2)
+    return x + _row_parallel(gelu_fast(linear(y, blk.mlp.lin1)), blk.mlp.lin2,
+                             blk.mlp.tp_group)
 
 
 def _conv_hwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

@@ -4,9 +4,10 @@ One process per rank, the PyTorch idiom. Every rank runs the same program
 on the same host inputs, as the JAX package's multi-host path assumes; the
 ranks are laid out as a data x model grid with the JAX function's shape
 rule. The `data` axis carries whole videos, inpaint windows and training
-clips; the `model` axis is laid out (so `--mesh DPxMP` places ranks as JAX
-places devices) but left replicated, as JAX's batched step leaves it:
-tensor parallelism of the SAM encoder is ROADMAP A13b.
+clips. The `model` axis carries the SAM encoder's tensor parallelism
+(`shard_sam_params_tp`), which no entry point turns on: `--mesh DPxMP`
+places ranks as JAX places devices and leaves the parameters replicated,
+as JAX's batched step does.
 
 Backends follow the device: NCCL for `cuda`, gloo for `cpu`. There is no
 fallback from one to the other: a failed `init_process_group` raises, and
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import copy
 import dataclasses
 import datetime
 import os
@@ -44,15 +46,19 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
                      device: DeviceLike = None,
-                     timeout_s: float = TIMEOUT_S) -> Tuple[int, int]:
+                     timeout_s: float = TIMEOUT_S,
+                     backend: Optional[str] = None) -> Tuple[int, int]:
     """Join (or, alone, open) the default process group; returns (rank,
     world size). `coordinator_address` is a `tcp://host:port` or `file://`
     URL (a bare `host:port` means tcp); without one the group comes from
     torchrun's environment (RANK / WORLD_SIZE / MASTER_ADDR) where it is
     set, else it is a group of one process over a rendezvous file in a
-    fresh temporary directory. On `cuda` each process takes the card of its
-    local rank."""
-    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    fresh temporary directory. `backend` defaults to NCCL on `cuda` (each
+    process takes the card of its local rank) and gloo on `cpu`; gloo on
+    `cuda` lets several processes share one card (NCCL refuses two ranks on
+    one device)."""
+    if backend is None:
+        backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
     kwargs = dict(backend=backend, timeout=datetime.timedelta(seconds=timeout_s))
     if coordinator_address is not None:
         url = (coordinator_address if "://" in coordinator_address
@@ -115,16 +121,17 @@ def is_writer() -> bool:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """A data x model layout of ranks: rank r sits at (r // model, r % model)
-    of `devices`, as JAX's `make_mesh` reshapes its device list. `data_group`
-    joins the ranks of this rank's model index (the ranks that split the
-    data); None without a process group (the collectives then return their
-    input). The model axis is laid out but has no group: nothing uses it
-    until tensor parallelism (ROADMAP A13b)."""
+    of `devices`, as JAX's `make_mesh` reshapes its device list.
+    `data_group` joins the ranks of this rank's model index (the ranks that
+    split the data), `model_group` the ranks of its data index (the ranks
+    that split one encoder's heads); each is None without a process group
+    (the collectives then return their input)."""
 
     devices: np.ndarray                  # (data, model) ranks
     axis_names: Tuple[str, str]
     rank: int
     data_group: Any = None
+    model_group: Any = None
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -135,10 +142,22 @@ class Mesh:
         return self.devices.shape[0]
 
     @property
+    def model_size(self) -> int:
+        return self.devices.shape[1]
+
+    def _cell(self) -> Tuple[int, int]:
+        hit = np.argwhere(self.devices == self.rank)
+        return (int(hit[0][0]), int(hit[0][1])) if len(hit) else (0, 0)
+
+    @property
     def data_index(self) -> int:
         """This rank's row of the grid (0 for a rank outside it)."""
-        hit = np.argwhere(self.devices == self.rank)
-        return int(hit[0][0]) if len(hit) else 0
+        return self._cell()[0]
+
+    @property
+    def model_index(self) -> int:
+        """This rank's column of the grid (0 for a rank outside it)."""
+        return self._cell()[1]
 
 
 def make_mesh(cfg: ParallelConfig, ranks: Optional[Sequence[int]] = None) -> Mesh:
@@ -146,9 +165,11 @@ def make_mesh(cfg: ParallelConfig, ranks: Optional[Sequence[int]] = None) -> Mes
     process) out as (data, model) with the JAX function's rule: model =
     max(1, model_parallel), data = data_parallel where positive, else
     ranks // model; ValueError where data x model != the rank count. The
-    data groups are made (every rank of the default group must call this)
-    when a process group is open and the layout covers it (a group of one
-    rank too: its collectives still run, through the backend)."""
+    groups are made (every rank of the default group must call this) when a
+    process group is open and the layout covers it (a group of one rank
+    too: its collectives still run, through the backend): the data groups
+    (one per model index) first, then the model groups (one per data
+    index), in one order on every rank."""
     rank, size = world()
     ranks = list(range(size)) if ranks is None else list(ranks)
     n = len(ranks)
@@ -157,13 +178,17 @@ def make_mesh(cfg: ParallelConfig, ranks: Optional[Sequence[int]] = None) -> Mes
     if dp * mp != n:
         raise ValueError(f"mesh {dp}x{mp} != {n} devices")
     grid = np.asarray(ranks).reshape(dp, mp)
-    data_group = None
+    data_group = model_group = None
     if dist.is_initialized() and sorted(ranks) == list(range(size)):
-        for m in range(mp):          # every rank makes every group, in one order
+        for m in range(mp):
             grp = dist.group.WORLD if mp == 1 else dist.new_group(grid[:, m].tolist())
             if rank in grid[:, m]:
                 data_group = grp
-    return Mesh(grid, (cfg.data_axis, cfg.model_axis), rank, data_group)
+        for d in range(dp):
+            grp = dist.group.WORLD if dp == 1 else dist.new_group(grid[d, :].tolist())
+            if rank in grid[d, :]:
+                model_group = grp
+    return Mesh(grid, (cfg.data_axis, cfg.model_axis), rank, data_group, model_group)
 
 
 def _tree_map(fn, tree):
@@ -224,20 +249,73 @@ def all_gather_data_object(obj, mesh: Mesh) -> list:
 
 
 def shard_sam_params_tp(sam, mesh: Mesh, cfg: ParallelConfig):
-    """Tensor-parallel SAM encoder over the model axis: not ported."""
-    raise NotImplementedError(
-        "shard_sam_params_tp: tensor parallelism of the SAM encoder over the model axis "
-        "(qkv / MLP hidden split, heads over the model group through B3) is ROADMAP A13b, "
-        "not ported yet")
+    """Megatron-style tensor parallelism of the SAM image encoder over the
+    mesh's model axis (`vosesam_tpu/parallel/mesh.py:shard_sam_params_tp`).
+    Returns a SAM whose encoder holds this rank's slices; every other
+    tensor (patch embed, position embed, norms, rel-pos tables, the neck,
+    the prompt encoder and the mask decoder) is the input's own, shared.
+
+    Rank m of the model group takes heads [m·H/mp, (m+1)·H/mp): the q, k and
+    v rows of those heads of each qkv projection (column parallel by heads,
+    since the projection's output is laid out (3, heads, hd)) and the same
+    columns of proj (row parallel); lin1's rows and lin2's columns over the
+    m-th contiguous slice of the MLP's hidden width. Each row-parallel
+    product is summed over the model group by one all-reduce, its bias
+    added once after it (`models/sam/image_encoder.py`). At model size 1
+    the input comes back as it is. `cfg` is the layout the mesh was made
+    from (its axis names), as in JAX."""
+    mp, m = mesh.model_size, mesh.model_index
+    if cfg.model_axis != mesh.axis_names[1]:
+        raise ValueError(f"shard_sam_params_tp: the mesh's model axis is "
+                         f"{mesh.axis_names[1]!r}, not {cfg.model_axis!r}")
+    if mp == 1:
+        return sam
+    blocks = sam.image_encoder.blocks
+    heads, hidden = blocks[0].attn.heads, blocks[0].mlp.lin1.out_features
+    if heads % mp or hidden % mp:
+        raise ValueError(f"shard_sam_params_tp: {heads} heads / MLP width {hidden} do "
+                         f"not divide over the {mp}-way model axis")
+    if mesh.model_group is None:
+        raise ValueError("shard_sam_params_tp: the mesh's model axis has no process group")
+    hl, fl = heads // mp, hidden // mp
+
+    def part(t: torch.Tensor) -> torch.nn.Parameter:
+        return torch.nn.Parameter(t.detach().contiguous().clone(), requires_grad=False)
+
+    # deepcopy with a memo: the sharded weights map to their slices, every
+    # other tensor to itself, so only module objects are copied
+    memo = {id(t): t for t in list(sam.parameters()) + list(sam.buffers())}
+    for blk in blocks:
+        a, f = blk.attn, blk.mlp
+        c = a.qkv.in_features
+        hd = c // heads
+        qkv_w = a.qkv.weight.reshape(3, heads, hd, c)[:, m * hl:(m + 1) * hl]
+        qkv_b = a.qkv.bias.reshape(3, heads, hd)[:, m * hl:(m + 1) * hl]
+        memo[id(a.qkv.weight)] = part(qkv_w.reshape(3 * hl * hd, c))
+        memo[id(a.qkv.bias)] = part(qkv_b.reshape(3 * hl * hd))
+        memo[id(a.proj.weight)] = part(a.proj.weight[:, m * hl * hd:(m + 1) * hl * hd])
+        memo[id(f.lin1.weight)] = part(f.lin1.weight[m * fl:(m + 1) * fl])
+        memo[id(f.lin1.bias)] = part(f.lin1.bias[m * fl:(m + 1) * fl])
+        memo[id(f.lin2.weight)] = part(f.lin2.weight[:, m * fl:(m + 1) * fl])
+    out = copy.deepcopy(sam, memo)
+    for blk in out.image_encoder.blocks:
+        blk.attn.heads = hl
+        blk.attn.tp_group = blk.mlp.tp_group = mesh.model_group
+        for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.lin1, blk.mlp.lin2):
+            lin.out_features, lin.in_features = lin.weight.shape
+    return out
 
 
 # ---------------------------------------------------------------- launcher
 
 def _rank_main(rank: int, fn: Callable, world_size: int, url: str, device: str,
-               threads: Optional[int], out_dir: str, args: tuple) -> None:
+               backend: Optional[str], threads: Optional[int], out_dir: str,
+               args: tuple) -> None:
     if threads:
         torch.set_num_threads(threads)
-    init_distributed(url, world_size, rank, device=device)
+    # the ranks are local processes: gloo meets over the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    init_distributed(url, world_size, rank, device=device, backend=backend)
     try:
         result = fn(*args)
     finally:
@@ -247,20 +325,23 @@ def _rank_main(rank: int, fn: Callable, world_size: int, url: str, device: str,
 
 
 def run_ranks(fn: Callable, world_size: int, *args, device: DeviceLike = None,
-              timeout_s: float = TIMEOUT_S, threads: Optional[int] = None) -> list:
+              timeout_s: float = TIMEOUT_S, threads: Optional[int] = None,
+              backend: Optional[str] = None) -> list:
     """Run `fn(*args)` in `world_size` new local processes, ranks 0..n-1 of one
-    group (NCCL on `cuda`, one card per rank; gloo on `cpu`) that meets
-    through a `file://` rendezvous in a temporary directory. Returns the
-    ranks' results in rank order. `fn` must be importable by name (the
-    processes are spawned); a rank that fails, or a run past `timeout_s`,
-    stops every rank and raises."""
+    group that meets through a `file://` rendezvous in a temporary
+    directory: NCCL on `cuda`, one card per rank, and gloo on `cpu`, unless
+    `backend` says otherwise (gloo on `cuda`: every rank on the current
+    card). Returns the ranks' results in rank order. `fn` must be
+    importable by name (the processes are spawned); a rank that fails, or a
+    run past `timeout_s`, stops every rank and raises."""
     import torch.multiprocessing as mp
 
     dev = resolve_device(device)
     tmp = tempfile.mkdtemp(prefix="vosesam-ranks-")
     try:
         url = f"file://{os.path.join(tmp, 'rendezvous')}"
-        ctx = mp.spawn(_rank_main, args=(fn, world_size, url, dev.type, threads, tmp, args),
+        ctx = mp.spawn(_rank_main, args=(fn, world_size, url, dev.type, backend, threads, tmp,
+                                         args),
                        nprocs=world_size, join=False)
         deadline = time.monotonic() + timeout_s
         while not ctx.join(timeout=max(0.1, min(1.0, deadline - time.monotonic()))):

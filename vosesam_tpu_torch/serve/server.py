@@ -23,8 +23,9 @@ back as palette PNGs with the PASCAL colormap.
 Concurrency: inference routes are single-flight — one model, one device,
 one request at a time. A request arriving while another is in flight gets
 an immediate ``503 {"error": "busy"}`` with a ``Retry-After`` header
-instead of queueing behind the lock; clients retry with backoff. /health is
-always served. An exception inside a route answers 500 with its name and
+instead of queueing behind the lock; clients retry with backoff. The lock
+is released before the reply is written, so a request sent as soon as the
+previous reply was read is not refused. /health is always served. An exception inside a route answers 500 with its name and
 message (and its traceback on stderr).
 
     python -m vosesam_tpu_torch.serve.server --port 6080 \
@@ -38,7 +39,7 @@ import json
 import threading
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,36 +112,37 @@ class InferenceHandler(BaseHTTPRequestHandler):
                        retry_after=1)
             return
         try:
-            route(req)
+            code, payload = route(req)
         except Exception as e:  # the server keeps serving; the client gets the error
             traceback.print_exc()
-            self._json(500, {"error": f"{type(e).__name__}: {e}"})
+            code, payload = 500, {"error": f"{type(e).__name__}: {e}"}
         finally:
             self.lock.release()
+        # written after the release: a client that sends its next request as
+        # soon as it has read this reply finds the lock free
+        self._json(code, payload)
 
-    def _segment(self, req: dict) -> None:
+    def _segment(self, req: dict) -> Tuple[int, dict]:
         image = _decode_image(req["image"])
         points = np.asarray(req.get("points", []), np.float32).reshape(-1, 2)
         labels = np.asarray(req.get("labels", [1] * len(points)), np.int32)
         self.model.samcontroler.reset_image()
         mask, _logit, _painted = self.model.first_frame_click(image, points, labels)
-        self._json(200, {"mask": _encode_mask(mask.astype(np.uint8)),
-                         "shape": list(mask.shape)})
+        return 200, {"mask": _encode_mask(mask.astype(np.uint8)), "shape": list(mask.shape)}
 
-    def _inpaint(self, req: dict) -> None:
+    def _inpaint(self, req: dict) -> Tuple[int, dict]:
         if getattr(self.model, "baseinpainter", None) is None:
-            self._json(503, {"error": "inpainter not loaded — start the model with "
-                             "e2fgvi_checkpoint=..."})
-            return
+            return 503, {"error": "inpainter not loaded — start the model with "
+                                  "e2fgvi_checkpoint=..."}
         frames = [_decode_image(b) for b in req["frames"]]
         masks = [_decode_mask(b) for b in req["masks"]]
         dilate = req.get("dilate_radius")
         out = self.model.baseinpainter.inpaint(
             frames, masks, ratio=float(req.get("ratio", 1.0)),
             dilate_radius=None if dilate is None else int(dilate))
-        self._json(200, {"frames": [_encode_frame(f) for f in out]})
+        return 200, {"frames": [_encode_frame(f) for f in out]}
 
-    def _track(self, req: dict) -> None:
+    def _track(self, req: dict) -> Tuple[int, dict]:
         frames = [_decode_image(b) for b in req["frames"]]
         template = _decode_mask(req["template_mask"])
         self.model.xmem.clear_memory()
@@ -150,8 +152,8 @@ class InferenceHandler(BaseHTTPRequestHandler):
             masks, scores = self.model.generator_chunked(frames, template, chunk=chunk)
         else:
             masks, _logits, _painted, scores = self.model.generator(frames, template)
-        self._json(200, {"masks": [_encode_mask(m) for m in masks],
-                         "scores": [list(map(float, s)) for s in scores]})
+        return 200, {"masks": [_encode_mask(m) for m in masks],
+                     "scores": [list(map(float, s)) for s in scores]}
 
 
 def serve(model, host: str = "127.0.0.1", port: int = 6080) -> ThreadingHTTPServer:

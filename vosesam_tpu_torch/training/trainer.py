@@ -53,6 +53,7 @@ from vosesam_tpu_torch.models.xmem import network as xnet
 from vosesam_tpu_torch.ops.aggregate import clip
 from vosesam_tpu_torch.ops.memory_attention import get_similarity, readout
 from vosesam_tpu_torch.parallel import mesh as meshlib
+from vosesam_tpu_torch.utils.profiling import StageTimer
 
 BN_STATS = ("running_mean", "running_var")
 B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adamw's defaults
@@ -176,65 +177,85 @@ def clip_forward_loss(
     it: int,
     cfg: FrameworkConfig,
     remat: bool = True,
+    timer: Optional[StageTimer] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One clip's unrolled forward + losses (trainer.py:75-117); `remat`
-    recomputes each frame's body in the backward pass."""
+    recomputes each frame's body in the backward pass. A frame is three
+    pieces in the reference's order, each its own remat region (the graph
+    and the values are those of one region): the read and the decoder
+    ("forward" of `timer`), the losses ("loss"), the memorised value
+    ("forward")."""
+    timer = timer or StageTimer(enabled=False)
     t, h, w, _ = frames.shape
     o = cfg.xmem.max_objects
     h16, w16 = h // 16, w // 16
     hw = h16 * w16
     labels = torch.arange(1, o + 1, device=frames.device)[:, None, None]
     gt0 = (gt_indexed[0][None] == labels).to(frames.dtype)
-    key0, sh0, _sel0, feats0 = xnet.encode_key(net, frames[0])
-    hidden = torch.zeros((o, h16, w16, max(cfg.xmem.hidden_dim, 1)), dtype=frames.dtype,
-                         device=frames.device)
-    v0, hidden = xnet.encode_value(net, frames[0], feats0.f16, hidden, gt0, obj_valid,
-                                   cfg.xmem)
+    with timer.stage("forward"):
+        key0, sh0, _sel0, feats0 = xnet.encode_key(net, frames[0])
+        hidden = torch.zeros((o, h16, w16, max(cfg.xmem.hidden_dim, 1)), dtype=frames.dtype,
+                             device=frames.device)
+        v0, hidden = xnet.encode_value(net, frames[0], feats0.f16, hidden, gt0, obj_valid,
+                                       cfg.xmem)
+        timer.record(v0)
     mem_keys = key0.reshape(hw, -1)
     mem_shrink = sh0.reshape(hw)
     mem_values = v0.reshape(o, hw, -1)
 
-    def frame_body(frame, gt_t, mem_keys, mem_shrink, mem_values, hidden):
+    def read_and_segment(frame, mem_keys, mem_shrink, mem_values, hidden):
         key, sh, sel, feats = xnet.encode_key(net, frame)
         read = _train_read_memory(mem_keys, mem_shrink, mem_values, key.reshape(hw, -1),
                                   sel.reshape(hw, -1)).reshape(o, h16, w16, -1)
         hidden_new, agg_logits, prob = xnet.segment(net, feats, read.to(frame.dtype), hidden,
                                                     obj_valid, cfg.xmem, h_out=True)
         hidden2 = hidden_new if hidden_new is not None else hidden
+        return key, sh, feats.f16, hidden2, agg_logits, prob
+
+    def losses(agg_logits, prob, gt_t):
         # per-object logits for the dice term, from the probabilities
         obj_logits = (torch.log(clip(prob[1:], 1e-7, 1.0))
                       - torch.log(clip(1.0 - prob[1:], 1e-7, 1.0)))
-        loss, parts = L.frame_loss(agg_logits, obj_logits, gt_t, obj_valid, it)
+        return L.frame_loss(agg_logits, obj_logits, gt_t, obj_valid, it)
+
+    def memorize(frame, f16, hidden2, prob):
         # memorize this frame with the predicted mask (self-supervised rollout)
-        v, hidden3 = xnet.encode_value(net, frame, feats.f16, hidden2, prob[1:], obj_valid,
-                                       cfg.xmem)
-        return (loss, parts, key.reshape(hw, -1), sh.reshape(hw), v.reshape(o, hw, -1),
-                hidden3)
+        return xnet.encode_value(net, frame, f16, hidden2, prob[1:], obj_valid, cfg.xmem)
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
     total = 0.0
     aux: Dict[str, torch.Tensor] = {}
     for ti in range(1, t):
-        args = (frames[ti], gt_indexed[ti], mem_keys, mem_shrink, mem_values, hidden)
-        if remat:
-            out = checkpoint(frame_body, *args, use_reentrant=False)
-        else:
-            out = frame_body(*args)
-        loss, parts, k_new, s_new, v_new, hidden = out
+        with timer.stage("forward"):
+            key, sh, f16, hidden2, agg_logits, prob = run(
+                read_and_segment, frames[ti], mem_keys, mem_shrink, mem_values, hidden)
+            timer.record(prob)
+        with timer.stage("loss"):
+            loss, parts = run(losses, agg_logits, prob, gt_indexed[ti])
+            timer.record(loss)
+        with timer.stage("forward"):
+            v, hidden = run(memorize, frames[ti], f16, hidden2, prob)
+            timer.record(v)
         total = total + loss
         if ti == 1:
             aux = parts
-        mem_keys = torch.cat([mem_keys, k_new], 0)
-        mem_shrink = torch.cat([mem_shrink, s_new], 0)
-        mem_values = torch.cat([mem_values, v_new], 1)
+        mem_keys = torch.cat([mem_keys, key.reshape(hw, -1)], 0)
+        mem_shrink = torch.cat([mem_shrink, sh.reshape(hw)], 0)
+        mem_values = torch.cat([mem_values, v.reshape(o, hw, -1)], 1)
     return total / (t - 1), aux
 
 
 def batch_gradients(state: TrainState, frames, gt, obj_valid, cfg: FrameworkConfig,
-                    tcfg: TrainConfig) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
-                                                Dict[str, torch.Tensor]]:
+                    tcfg: TrainConfig, timer: Optional[StageTimer] = None
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, Dict[str, torch.Tensor]]:
     """Gradients of the batch's mean loss, the mean loss and the mean aux:
     `grad_accum` sequential microbatches, each the mean over its clips
-    (one clip's graph alive at a time), summed and divided by the count."""
+    (one clip's graph alive at a time), summed and divided by the count.
+    `timer` times the clips' "forward" and "loss" and their "backward"
+    (with remat, the recomputed forward with it)."""
+    timer = timer or StageTimer(enabled=False)
     b = frames.shape[0]
     ga = tcfg.grad_accum
     if b % ga:
@@ -251,8 +272,10 @@ def batch_gradients(state: TrainState, frames, gt, obj_valid, cfg: FrameworkConf
         m_aux: Dict[str, torch.Tensor] = {}
         for i in range(m * mb, (m + 1) * mb):
             loss, aux = clip_forward_loss(state.net, frames[i], gt[i], obj_valid[i], state.it,
-                                          cfg, remat=tcfg.remat)
-            (loss / mb).backward()
+                                          cfg, remat=tcfg.remat, timer=timer)
+            with timer.stage("backward"):
+                (loss / mb).backward()
+                timer.record(next(iter(leaves.values())).grad)
             m_loss = m_loss + loss.detach() / mb
             for k, a in aux.items():
                 m_aux[k] = m_aux.get(k, 0.0) + a.detach() / mb
@@ -300,16 +323,25 @@ def train_step(
     cfg: FrameworkConfig,
     tcfg: TrainConfig,
     mesh: Optional["meshlib.Mesh"] = None,
+    timer: Optional[StageTimer] = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step over a clip batch (in place on `state`). Returns
     the state and the batch's mean losses ("loss", "ce", "dice", "total").
-    With `mesh`, data parallel over its data axis (the module docstring)."""
+    With `mesh`, data parallel over its data axis (the module docstring).
+    `timer` (a `utils.profiling.StageTimer`) times the step's parts:
+    "forward", "loss", "backward" (`batch_gradients`), "all_reduce" with a
+    mesh, and "optimizer"; each syncs the device at its end."""
+    timer = timer or StageTimer(enabled=False)
     if mesh is not None:
         frames, gt, obj_valid = meshlib.shard_batch((frames, gt, obj_valid), mesh)
-    grads, loss, aux = batch_gradients(state, frames, gt, obj_valid, cfg, tcfg)
+    grads, loss, aux = batch_gradients(state, frames, gt, obj_valid, cfg, tcfg, timer)
     if mesh is not None:
-        grads, loss, aux = all_reduce_mean(grads, loss, aux, mesh)
-    apply_adamw(state, grads, tcfg)
+        with timer.stage("all_reduce"):
+            grads, loss, aux = all_reduce_mean(grads, loss, aux, mesh)
+            timer.record(loss)
+    with timer.stage("optimizer"):
+        apply_adamw(state, grads, tcfg)
+        timer.record(next(iter(state.mu.values())))
     state.it += 1
     aux = dict(aux)
     aux["loss"] = loss
