@@ -164,15 +164,36 @@ Phases (each one that fails exits non-zero):
      equal in fp32 and >= 99% in bf16 (phase 5's bf16 bound, C16), the
      wall ms of a model-2 encode beside the unsharded one; (g)
      the group destroyed, its time logged.
-  14. the bench: `python -m vosesam_tpu_torch.bench` in this process at
-     BENCH_FRAMES=16 (3 reps, the default: the long-term memory fills in
-     the second), every other knob at its default and every ported row on
-     (the stage table, `interactive_ms`, the inpaint window), TF32
-     convolutions as the bench runs alone: the line parses, fps > 0, the
-     stage keys and extras present, `lt_count` > 0, `mfu_vs_peak` in
-     (0, 1], B1, B3 and B6 launched and no plain call; kept in `--out`.
+  14. the bench: `python -m vosesam_tpu_torch.bench` in this process
+     (`bench.run` with the sensitivity rows, as its `main` runs it) at
+     full width (vit_h SAM-HQ, rect, chunk 8, bf16, 480x854) and cut
+     depth: BENCH_FRAMES=16 (3 reps, the default: the long-term memory
+     fills in the second), 16 measured frames a rep in the object-count
+     rows (O 1, 2, 4, 8), a soak of 448 frames at the production
+     `MemoryConfig` (17 consolidations, 10 eviction cycles; its frame_64
+     and tail windows, the fresh-state control); every other knob at its
+     default and every row on (the stage table, `interactive_ms`, the
+     inpaint window, the letterbox row, the read corridor of B1 at
+     live_end 1 / 0.5 / 0.25 x M), TF32 convolutions as the bench runs
+     alone: the line parses with every key, fps > 0, `lt_count` > 0,
+     `mfu_vs_peak` in (0, 1], the letterbox row and four object rows > 0,
+     the corridor finite with the kernel's and `get_similarity`'s device
+     time, the soak's schedule and checks (it raises on a broken arena),
+     B1, B3 and B6 launched and no plain call; kept in `--out`.
+  15. the parity runner at full width, in a temporary directory:
+     official-schema checkpoints from seeded modules (XMem-s012 widths,
+     SAM vit_h, SAM-HQ vit_h) and a 480x854 synthetic tree (DAVIS 8
+     frames a video, LongDataset 16, LVOS 8: depth cut, the loads of the
+     checkpoints take most of the phase; the test_sample clip where
+     imageio can write it, else config 2 is a SKIP row that says so);
+     `python -m vosesam_tpu_torch.run_parity` in this process, sequential
+     and `--chunk 8` (equal J, F and J&F), then `python -m
+     vosesam_tpu_torch.checkpoint_day` in its own process (a verdict;
+     phase A's J&F equal to the sequential rows'); B1 and B3 launched, no
+     plain call; seconds of each run.
 Kernel launch counts are set to 0 right before each main-path run (phases
-3, 5, 7, 8, 9, 10, each step of 12, 13's runs and 14) and read right after;
+3, 5, 7, 8, 9, 10, each step of 12, 13's runs, 14 and 15's runs; the
+checkpoint-day processes record their own) and read right after;
 the `kernels` line sums them (B7, a probe on no product path, counts its
 own run in phase 2e; B6's backward counts phase 12's steps).
 The last two lines are the `kernels` JSON line and the result line
@@ -183,6 +204,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -3357,21 +3379,35 @@ def phase_multi_device(torch, card: str, reference: dict):
 BENCH_KEYS = ("metric", "value", "unit", "fps_median", "fps_runs", "lt_count",
               "stage_ms_per_frame", "encode_grid", "encode_tflops", "mfu_vs_peak",
               "interactive_ms", "inpaint_ms_per_window", "inpaint_ms_per_output_frame",
-              "peak_memory_bytes", "device")
+              "peak_memory_bytes", "letterbox_fps", "letterbox_fps_runs",
+              "read_ms_at_occupancy", "read_device_ms_at_occupancy", "fps_by_objects",
+              "soak", "device")
+OCCUPANCY_KEYS = {"live_1", "live_0.5", "live_0.25"}
+CORRIDOR_CALLS = 20      # the bench's corridor: ms over 20 back-to-back calls, plus a first
 
 
-def phase_bench(torch, card: str, frames: int = 16):
-    """`python -m vosesam_tpu_torch.bench` in this process (`bench.run`) at
-    BENCH_FRAMES=`frames` with every other knob at its default (3 reps of
-    the continued rollout: at 16 frames a rep the long-term memory fills
-    during the second) and every ported row on, at PyTorch's default
-    precision (TF32 convolutions) as the bench runs alone: the JSON line
-    parses, fps > 0, the stage table and the extras present, `lt_count` >
-    0, `mfu_vs_peak` in (0, 1]. Kernel counts from 0 around the run."""
+def phase_bench(torch, card: str, frames: int = 16, objects_frames: int = 16,
+                soak_frames: int = 448):
+    """`python -m vosesam_tpu_torch.bench` in this process (`bench.run`,
+    with the sensitivity rows its `main` runs) at BENCH_FRAMES=`frames`,
+    BENCH_SOAK_FRAMES=`soak_frames` and `objects_frames` measured frames a
+    rep in the object-count rows, every other knob at its default (3 reps
+    of the continued rollout: at 16 frames a rep the long-term memory fills
+    during the second), at full width (vit_h SAM-HQ, rect, chunk 8, bf16,
+    480x854) and PyTorch's default precision (TF32 convolutions) as the
+    bench runs alone. The JSON line parses with every key; fps > 0, the
+    stage table and the extras present, `lt_count` > 0, `mfu_vs_peak` in
+    (0, 1]; the letterbox row > 0; four object-count rows > 0; the three
+    corridor entries finite and > 0, with the kernel's and
+    `get_similarity`'s device time beside them; the soak (which raises if
+    its arena accounting, saturation or eviction-overwrite checks fail)
+    with its analytic schedule, long-term memory saturated at 1000,
+    eviction cycles and overwrites > 0, its windows and the fresh-state
+    control. Kernel counts from 0 around the run."""
     from vosesam_tpu_torch import bench
     from vosesam_tpu_torch.ops.kernels import deform_align as da
 
-    env = dict(bench.DEFAULTS, BENCH_FRAMES=str(frames))
+    env = dict(bench.DEFAULTS, BENCH_FRAMES=str(frames), BENCH_SOAK_FRAMES=str(soak_frames))
     allow_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -3379,7 +3415,7 @@ def phase_bench(torch, card: str, frames: int = 16):
         _reset_all()
         da.reset_counts()
         t0 = time.time()
-        line = bench.run(env, device="cuda")
+        line = bench.run(env, device="cuda", sensitivity=True, objects_frames=objects_frames)
         torch.cuda.synchronize()
         seconds = time.time() - t0
     finally:
@@ -3398,13 +3434,153 @@ def phase_bench(torch, card: str, frames: int = 16):
                                   f"{parsed['lt_count']})")
     check(0.0 < parsed["mfu_vs_peak"] <= 1.0, f"bench: mfu_vs_peak {parsed['mfu_vs_peak']}")
     check(parsed["device"] == card, f"bench: device {parsed['device']!r} vs {card!r}")
-    check(counts["plain"] == 0 and counts["fused_memory_read_shared"] > 0
+    check(parsed["letterbox_fps"] > 0 and len(parsed["letterbox_fps_runs"]) == 3,
+          f"bench: letterbox {parsed['letterbox_fps_runs']}")
+    objs = parsed["fps_by_objects"]
+    check(set(objs) == {"1", "2", "4", "8"} and all(v > 0 for v in objs.values()),
+          f"bench: fps_by_objects {objs}")
+    wall, dev_ms = parsed["read_ms_at_occupancy"], parsed["read_device_ms_at_occupancy"]
+    check(set(wall) == OCCUPANCY_KEYS and set(dev_ms) == OCCUPANCY_KEYS
+          and all(math.isfinite(v) and v > 0 for v in wall.values())
+          and all(math.isfinite(v) and v > 0 for d in dev_ms.values() for v in d.values()),
+          f"bench: read corridor {wall} {dev_ms}")
+    soak = parsed["soak"]
+    hw_tok = 30 * 54                              # 480x854 -> 30 x 54 tokens
+    adds = soak_frames // 5 + 1                   # a memory frame every 5
+    consols = 1 + (adds - 10) * hw_tok // (5 * hw_tok)   # fills at 10, keeps 5
+    check(soak["frames"] == soak_frames and soak["consolidations"] == consols
+          and soak["lt_eviction_cycles"] == consols - 1000 // 128 > 0
+          and soak["lt_valid_final"] == 1000 and soak["lt_overwrites_observed"] > 0,
+          f"bench: soak schedule {soak}")
+    check(set(soak["fps_windows"]) == {"frame_64", "frame_tail"}
+          and all(v > 0 for v in soak["fps_windows"].values())
+          and soak["fps_fresh_control"] > 0 and soak["peak_device_bytes"] > 0,
+          f"bench: soak windows {soak}")
+    check(counts["plain"] == 0 and counts["fused_memory_read_shared"] > 3 * (CORRIDOR_CALLS + 1)
           and counts["flash_attention_relpos"] > 0 and counts["deform_patches_bounded"] > 0,
           f"bench: launches {counts}")
-    log(f"[bench] {card}; python -m vosesam_tpu_torch.bench at BENCH_FRAMES={frames} in "
+    log(f"[bench] {card}; python -m vosesam_tpu_torch.bench at BENCH_FRAMES={frames}, "
+        f"{objects_frames} frames a rep in fps_by_objects, BENCH_SOAK_FRAMES={soak_frames} "
+        f"(~{consols} consolidations, {consols - 1000 // 128} eviction cycles) in "
         f"{seconds:.1f} s: {text}")
-    log(f"[bench] launches {json.dumps(counts)}")
+    log(f"[bench] launches {json.dumps(counts)}; of B1's, {3 * (CORRIDOR_CALLS + 1)} the "
+        f"read corridor's wrapper calls")
     return dict(line=parsed, seconds=seconds, launches=counts)
+
+
+# ------------------------------------------- the parity runner (A16)
+
+def phase_parity(torch, card: str, n_frames: int = 8, long_frames: int = 16,
+                 lvos_frames: int = 8):
+    """The J&F parity runner and the checkpoint-day pipeline at full width,
+    in a temporary directory: official-schema checkpoints from seeded
+    modules on the card (XMem-s012's widths, SAM vit_h and SAM-HQ vit_h,
+    fp32) and a 480x854 synthetic tree (`eval/synthetic.py`: DAVIS
+    `n_frames` a video, LongDataset `long_frames` with ground truth every
+    8th, LVOS `lvos_frames`; the test_sample clip where imageio can write
+    it, else config 2 is a SKIP row that says so). Then `python -m
+    vosesam_tpu_torch.run_parity` in this process sequentially and with
+    `--chunk 8` (the official square encode, bf16), each with kernel counts
+    from 0: configs 1, 3 and 4 give J&F in [0, 1], config 5 saves masks,
+    the chunked rows' J, F and J&F equal the sequential rows', B1 and B3
+    launched and no plain call; then `python -m
+    vosesam_tpu_torch.checkpoint_day` once in a process of its own (phase
+    A with `--chunk 8 --batch`, a group of one; phase B at letterbox
+    448x896): a verdict, phase A's J&F equal to the sequential rows', the
+    launches its `run_parity` processes record. Seconds of each run."""
+    import shutil
+    import tempfile
+
+    from vosesam_tpu_torch import checkpoint_day as cd
+    from vosesam_tpu_torch import run_parity as rp
+    from vosesam_tpu_torch.config import SAMConfig, XMemConfig
+
+    here = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="vosesam_parity_")
+    out = {"seconds": {}}
+    try:
+        os.chdir(tmp)
+        t0 = time.time()
+        rp.write_checkpoints("ck", SAMConfig(model_type="vit_h"),
+                             SAMConfig(model_type="vit_h", hq=True), xmem_cfg=XMemConfig(),
+                             device="cuda")
+        torch.cuda.empty_cache()
+        out["seconds"]["checkpoints"] = time.time() - t0
+        t0 = time.time()
+        clip_missing = rp.write_data("data", 480, 854, frames=dict(
+            davis_frames=n_frames, long_frames=long_frames, long_every=8,
+            lvos_frames=lvos_frames, ovis_frames=1))
+        out["seconds"]["data"] = time.time() - t0
+        log(f"[parity] checkpoints {out['seconds']['checkpoints']:.1f} s, 480x854 tree "
+            f"{out['seconds']['data']:.1f} s; config 2 "
+            + (f"is a SKIP row: {clip_missing}" if clip_missing else "runs on the clip"))
+        rows, launches = {}, {}
+        for name, extra in (("sequential", []), ("chunk_8", ["--chunk", "8"])):
+            torch.cuda.synchronize()
+            _reset_all()
+            t0 = time.time()
+            rows[name] = rp.main(["--checkpoints", "ck", "--data", "data", "--out", name,
+                                  "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            out["seconds"][name] = time.time() - t0
+            launches[name] = _read_all()
+            got = rows[name]
+            check([r["config"] for r in got] == list(rp.CONFIGS), f"parity {name}: {got}")
+            for r in (got[0], got[2], got[3]):
+                check(all(0.0 <= r[k] <= 1.0 for k in ("J_mean", "F_mean", "JF_mean"))
+                      and r["fps"] > 0, f"parity {name}: {r}")
+            check(got[4]["note"].startswith("masks saved"), f"parity {name}: {got[4]}")
+            check(os.path.exists("result/parity5_lvos/masks/clip/00000.png"),
+                  f"parity {name}: LVOS masks not saved")
+            if clip_missing:
+                check(got[1]["note"] == "SKIP: needs imageio to read the test_sample clip",
+                      f"parity {name}: {got[1]}")
+            else:
+                check(got[1]["fps"] > 0, f"parity {name}: {got[1]}")
+            n = launches[name]
+            check(n["plain"] == 0 and n["fused_memory_read_shared"] > 0
+                  and n["flash_attention_relpos"] > 0, f"parity {name}: launches {n}")
+            log(f"[parity] run_parity {name}: {out['seconds'][name]:.1f} s; launches "
+                f"{json.dumps(n)}; rows {json.dumps(got)}")
+        metrics = ("J_mean", "F_mean", "JF_mean")
+        for a, b in zip(rows["sequential"], rows["chunk_8"]):
+            check({k: a[k] for k in metrics} == {k: b[k] for k in metrics},
+                  f"parity: chunk 8 {b} against sequential {a}")
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "vosesam_tpu_torch.checkpoint_day",
+                               "--checkpoints", "ck", "--data", "data", "--out", "cd"],
+                              capture_output=True, text=True, timeout=900,
+                              env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                                  os.path.realpath(__file__))))
+        out["seconds"]["checkpoint_day"] = time.time() - t0
+        check(proc.returncode == 0, f"checkpoint_day: rc {proc.returncode}\n"
+                                    f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open("cd/checkpoint_day_report.json") as f:
+            report = json.load(f)
+        v = cd.compute_verdict(report["official"], report["letterbox"], 0.2)
+        check(report["letterbox_verdict"] in ("promote", "keep")
+              and report["letterbox_verdict"] == v["verdict"] and v["deltas"],
+              f"checkpoint_day: {report['letterbox_verdict']} {v}")
+        for a, b in zip(rows["sequential"], report["official"]):
+            check({k: a[k] for k in metrics} == {k: b[k] for k in metrics},
+                  f"checkpoint_day: phase A {b} against sequential {a}")
+        for phase in ("official", "letterbox"):
+            with open(f"cd/{phase}/kernel_launches.json") as f:
+                n = json.load(f)
+            check(n["plain"] == 0 and n["fused_memory_read_shared"] > 0
+                  and n["flash_attention_relpos"] > 0, f"checkpoint_day {phase}: {n}")
+            launches[f"checkpoint_day_{phase}"] = n
+        log(f"[parity] checkpoint_day (phases A and B, two run_parity processes): "
+            f"{out['seconds']['checkpoint_day']:.1f} s; verdict {report['letterbox_verdict']}, "
+            f"deltas {json.dumps(report['letterbox_jf_delta'])}; launches "
+            f"{json.dumps({k: launches[k] for k in launches if k.startswith('checkpoint')})}")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["rows"] = rows
+    log(f"[parity] {card}; phase 15 seconds {json.dumps(out['seconds'])}")
+    return out
 
 
 def _tp_step(torch, mesh, counted, launches, reps: int = 5):
@@ -3641,14 +3817,19 @@ def main() -> int:
         record["multi_device"] = phase_multi_device(torch, record["card"],
                                                     record["eval"].pop("reference"))
         torch.cuda.empty_cache()
+        t0 = time.time()
         record["bench"] = phase_bench(torch, record["card"])
+        torch.cuda.empty_cache()
+        t1 = time.time()
+        record["parity"] = phase_parity(torch, record["card"])
+        log(f"phase 14 took {t1 - t0:.1f} s, phase 15 {time.time() - t1:.1f} s")
         serving = (record["serve"]["launches"], record["serve"]["app"]["launches"],
-                   record["bench"]["launches"])
+                   record["bench"]["launches"], *record["parity"]["launches"].values())
         multi = record["multi_device"]["launches"]
         # launches: the sum over the main-path runs (phase 3, each of phase
         # 5's runs, phase 7, phase 9's runs, phase 10's requests and its app
-        # session, phase 13's runs, phase 14's bench), each counted from 0
-        # right before the run
+        # session, phase 13's runs, phase 14's bench, phase 15's parity
+        # runs), each counted from 0 right before the run
         for kr in kernels:
             kr["launches"] = counts.get(kr["name"], 0) + sum(
                 r["launches"][kr["name"]] for r in record["main_path"].values()
@@ -3661,8 +3842,8 @@ def main() -> int:
         # 14's bench, each counted from 0; its backward: phase 12's
         trained = record["inpaint_train"]["launches"]
         b6["launches"] = record["inpaint"]["b6_launches"] + sum(
-            c["deform_patches_bounded"] for c in serving) + trained["deform_patches_bounded"] \
-            + multi["deform_patches_bounded"]
+            c.get("deform_patches_bounded", 0) for c in serving) \
+            + trained["deform_patches_bounded"] + multi["deform_patches_bounded"]
         check(b6["launches"] > 0, "deform_patches_bounded never launched on the inpaint path")
         b6_bwd["launches"] = trained["deform_patches_backward"]
         check(b6_bwd["launches"] > 0, "deform_patches_backward never launched in training")

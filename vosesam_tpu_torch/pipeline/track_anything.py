@@ -56,8 +56,9 @@ def load_or_init_sam(checkpoint: Optional[str], cfg: SAMConfig,
     if checkpoint and os.path.exists(checkpoint):
         from vosesam_tpu_torch.utils.checkpoint import load_sam_checkpoint
 
-        sam = Sam(cfg)
-        sam.load_state_dict(load_sam_checkpoint(checkpoint), strict=True)
+        with torch.device("meta"):    # every tensor comes from the file
+            sam = Sam(cfg)
+        sam.load_state_dict(load_sam_checkpoint(checkpoint), strict=True, assign=True)
         return sam.to(device=dev, dtype=dtype).eval()
     return sam_init(cfg, seed=seed, device=dev, dtype=dtype)
 
