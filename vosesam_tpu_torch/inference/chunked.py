@@ -29,6 +29,7 @@ from vosesam_tpu_torch.inference.refinement import (
 )
 from vosesam_tpu_torch.models.sam import predictor
 from vosesam_tpu_torch.models.xmem.network import XMem
+from vosesam_tpu_torch.utils import profiling
 
 
 @torch.no_grad()
@@ -41,23 +42,27 @@ def track_chunk(
 ) -> Tuple[core.TrackerState, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Track K propagation frames. Returns (state, indexed (K, H, W) int32,
     scores (K, O), used_sam (K, O) bool or None without refinement)."""
-    refine = cfg.refinement.use_refinement
-    if refine:
-        if sam is None:
-            raise ValueError("refinement enabled but no SAM model given")
-        emb = predictor.encode_image(sam, frames, cfg.sam)
-    o = cfg.xmem.max_objects
-    masks, logits, scores, indexed, valid = [], [], [], [], []
-    for f in frames:
-        state, prob, lg = core.step(net, state, f, cfg)
-        m, idx = masks_from_prob(prob, o)
-        masks.append(m)
-        logits.append(lg[1:])
-        scores.append(xmem_object_scores(prob[1:]))
-        indexed.append(idx)
-        valid.append(state.memory.obj_valid)
-    if not refine:
-        return state, torch.stack(indexed), torch.stack(scores), None
-    res = refine_masks(sam, emb, torch.stack(masks), torch.stack(logits),
-                       torch.stack(scores), torch.stack(valid), cfg)
-    return state, res.indexed, res.scores, res.used_sam
+    with profiling.span("track.chunk"):
+        refine = cfg.refinement.use_refinement
+        if refine:
+            if sam is None:
+                raise ValueError("refinement enabled but no SAM model given")
+            emb = predictor.encode_image(sam, frames, cfg.sam)
+        o = cfg.xmem.max_objects
+        masks, logits, scores, indexed, valid = [], [], [], [], []
+        for f in frames:
+            state, prob, lg = core.step(net, state, f, cfg)
+            with profiling.span("track.masks"):
+                m, idx = masks_from_prob(prob, o)
+                masks.append(m)
+                logits.append(lg[1:])
+                scores.append(xmem_object_scores(prob[1:]))
+                indexed.append(idx)
+                valid.append(state.memory.obj_valid)
+        with profiling.span("track.masks"):
+            if not refine:
+                return state, torch.stack(indexed), torch.stack(scores), None
+            stacked = (torch.stack(masks), torch.stack(logits), torch.stack(scores),
+                       torch.stack(valid))
+        res = refine_masks(sam, emb, *stacked, cfg)
+        return state, res.indexed, res.scores, res.used_sam

@@ -38,6 +38,7 @@ from vosesam_tpu_torch.memory.rings import MemoryState, init_memory
 from vosesam_tpu_torch.models.xmem import network as xnet
 from vosesam_tpu_torch.ops.aggregate import soft_aggregate
 from vosesam_tpu_torch.ops.image import im_normalize, pad_divide_by, unpad
+from vosesam_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -69,11 +70,13 @@ def _prepare(frame: torch.Tensor, cfg: FrameworkConfig):
     return frame_p, pad, hw
 
 
-def _encode_and_read(net, cfg, state, frame_p):
-    key, shrinkage, selection, feats = xnet.encode_key(net, frame_p)
+def _encode_and_read(net, cfg, state, frame):
+    with profiling.span("xmem.encode_key"):
+        frame_p, pad, hw = _prepare(frame, cfg)
+        key, shrinkage, selection, feats = xnet.encode_key(net, frame_p)
     readout, _ = manager.match_memory(state.memory, key, selection, cfg.memory,
                                       cfg.parallel)
-    return key, shrinkage, selection, feats, readout
+    return frame_p, pad, hw, key, shrinkage, selection, feats, readout
 
 
 def _maybe_memorize(
@@ -87,14 +90,15 @@ def _maybe_memorize(
             state.memory.hidden = hidden_normal
         return state
     deep = cfg.memory.deep_update_every < 0 or deep_due
-    value, hidden_deep = xnet.encode_value(
-        net, frame_p, feats.f16, state.memory.hidden, prob_no_bg, obj_valid,
-        cfg.xmem, is_deep_update=deep)
-    if deep:
-        state.memory.hidden = hidden_deep
-        state.last_deep_update_ti = state.curr_ti
-    state.memory = manager.add_memory(state.memory, key, shrinkage, selection,
-                                      value, obj_valid, cfg.memory, hw)
+    with profiling.span("xmem.memorize"):
+        value, hidden_deep = xnet.encode_value(
+            net, frame_p, feats.f16, state.memory.hidden, prob_no_bg, obj_valid,
+            cfg.xmem, is_deep_update=deep)
+        if deep:
+            state.memory.hidden = hidden_deep
+            state.last_deep_update_ti = state.curr_ti
+        state.memory = manager.add_memory(state.memory, key, shrinkage, selection,
+                                          value, obj_valid, cfg.memory, hw)
     state.last_mem_ti = state.curr_ti
     return state
 
@@ -111,30 +115,30 @@ def step(
     logits_with_bg (1+O, H, W)). `end` marks the video's last frame
     (inference_core.py `end`): it is never memorized and never deep-updates
     the hidden state in async mode."""
-    state.curr_ti += 1
-    frame_p, pad, hw = _prepare(frame, cfg)
-    obj_valid = state.memory.obj_valid
+    with profiling.span("xmem.step"):
+        state.curr_ti += 1
+        obj_valid = state.memory.obj_valid
+        frame_p, pad, hw, key, shrinkage, selection, feats, readout = _encode_and_read(
+            net, cfg, state, frame)
+        with profiling.span("xmem.segment"):
+            hidden_dec, logits_with_bg, prob_with_bg = xnet.segment(
+                net, feats, readout.to(frame_p.dtype), state.memory.hidden, obj_valid,
+                cfg.xmem, h_out=True)
 
-    key, shrinkage, selection, feats, readout = _encode_and_read(
-        net, cfg, state, frame_p)
-    hidden_dec, logits_with_bg, prob_with_bg = xnet.segment(
-        net, feats, readout.to(frame_p.dtype), state.memory.hidden, obj_valid,
-        cfg.xmem, h_out=True)
-
-    is_mem_frame = state.curr_ti - state.last_mem_ti >= cfg.memory.mem_every and not end
-    if cfg.memory.deep_update_every < 0:       # sync mode
-        hidden_normal, deep_due = hidden_dec, True
-    else:                                      # async: decoder GRU every frame
-        if hidden_dec is not None:
-            state.memory.hidden = hidden_dec
-        hidden_normal = None
-        deep_due = (state.curr_ti - state.last_deep_update_ti
-                    >= cfg.memory.deep_update_every) and not end
-    state = _maybe_memorize(net, cfg, state, frame_p, feats, key, shrinkage,
-                            selection, prob_with_bg[1:], hidden_normal,
-                            is_mem_frame, deep_due, obj_valid, hw)
-    return (state, unpad(prob_with_bg, pad, axes=(-2, -1)),
-            unpad(logits_with_bg, pad, axes=(-2, -1)))
+        is_mem_frame = state.curr_ti - state.last_mem_ti >= cfg.memory.mem_every and not end
+        if cfg.memory.deep_update_every < 0:       # sync mode
+            hidden_normal, deep_due = hidden_dec, True
+        else:                                      # async: decoder GRU every frame
+            if hidden_dec is not None:
+                state.memory.hidden = hidden_dec
+            hidden_normal = None
+            deep_due = (state.curr_ti - state.last_deep_update_ti
+                        >= cfg.memory.deep_update_every) and not end
+        state = _maybe_memorize(net, cfg, state, frame_p, feats, key, shrinkage,
+                                selection, prob_with_bg[1:], hidden_normal,
+                                is_mem_frame, deep_due, obj_valid, hw)
+        return (state, unpad(prob_with_bg, pad, axes=(-2, -1)),
+                unpad(logits_with_bg, pad, axes=(-2, -1)))
 
 
 @torch.no_grad()
@@ -151,44 +155,44 @@ def step_with_mask(
     Predicted probabilities are zeroed wherever the mask claims any object;
     labelled objects take the mask; unlabelled tracked objects keep their
     prediction. Always a memory frame."""
-    state.curr_ti += 1
-    frame_p, pad, hw = _prepare(frame, cfg)
-    mask_p, _ = pad_divide_by(mask, 16, axes=(-2, -1))
-    obj_valid = state.memory.obj_valid
-    obj_valid_new = obj_valid | mask_valid
+    with profiling.span("xmem.step"):
+        state.curr_ti += 1
+        obj_valid = state.memory.obj_valid
+        obj_valid_new = obj_valid | mask_valid
+        frame_p, pad, hw, key, shrinkage, selection, feats, readout = _encode_and_read(
+            net, cfg, state, frame)
+        mask_p, _ = pad_divide_by(mask, 16, axes=(-2, -1))
 
-    key, shrinkage, selection, feats, readout = _encode_and_read(
-        net, cfg, state, frame_p)
+        if state.curr_ti == 0:
+            # nothing is tracked yet: the JAX step decodes and then zeroes this
+            pred_no_bg = torch.zeros(mask_p.shape, dtype=torch.float32, device=mask_p.device)
+        else:
+            with profiling.span("xmem.segment"):
+                _, _, prob_pred = xnet.segment(
+                    net, feats, readout.to(frame_p.dtype), state.memory.hidden,
+                    obj_valid, cfg.xmem, h_out=False)
+            pred_no_bg = prob_pred[1:]
 
-    if state.curr_ti == 0:
-        # nothing is tracked yet: the JAX step decodes and then zeroes this
-        pred_no_bg = torch.zeros(mask_p.shape, dtype=torch.float32, device=mask_p.device)
-    else:
-        _, _, prob_pred = xnet.segment(
-            net, feats, readout.to(frame_p.dtype), state.memory.hidden,
-            obj_valid, cfg.xmem, h_out=False)
-        pred_no_bg = prob_pred[1:]
+        mask_regions = mask_p.sum(dim=0) > 0.5
+        zero = torch.zeros((), device=pred_no_bg.device)
+        pred_no_bg = torch.where(mask_regions[None], zero, pred_no_bg)
+        merged = torch.where(mask_valid[:, None, None], mask_p.to(pred_no_bg.dtype), pred_no_bg)
+        prob_with_bg, logits_with_bg = soft_aggregate(merged, obj_valid_new, dim=0,
+                                                      return_logits=True)
 
-    mask_regions = mask_p.sum(dim=0) > 0.5
-    zero = torch.zeros((), device=pred_no_bg.device)
-    pred_no_bg = torch.where(mask_regions[None], zero, pred_no_bg)
-    merged = torch.where(mask_valid[:, None, None], mask_p.to(pred_no_bg.dtype), pred_no_bg)
-    prob_with_bg, logits_with_bg = soft_aggregate(merged, obj_valid_new, dim=0,
-                                                  return_logits=True)
+        # fresh hidden state for newly introduced objects (create_hidden_state)
+        newly = mask_valid & ~obj_valid
+        state.memory.hidden = torch.where(newly[:, None, None, None],
+                                          torch.zeros((), dtype=state.memory.hidden.dtype,
+                                                      device=zero.device),
+                                          state.memory.hidden)
 
-    # fresh hidden state for newly introduced objects (create_hidden_state)
-    newly = mask_valid & ~obj_valid
-    state.memory.hidden = torch.where(newly[:, None, None, None],
-                                      torch.zeros((), dtype=state.memory.hidden.dtype,
-                                                  device=zero.device),
-                                      state.memory.hidden)
-
-    if cfg.memory.deep_update_every < 0:
-        deep_due = True
-    else:
-        deep_due = state.curr_ti - state.last_deep_update_ti >= cfg.memory.deep_update_every
-    state = _maybe_memorize(net, cfg, state, frame_p, feats, key, shrinkage,
-                            selection, prob_with_bg[1:], None, True, deep_due,
-                            obj_valid_new, hw)
-    return (state, unpad(prob_with_bg, pad, axes=(-2, -1)),
-            unpad(logits_with_bg, pad, axes=(-2, -1)))
+        if cfg.memory.deep_update_every < 0:
+            deep_due = True
+        else:
+            deep_due = state.curr_ti - state.last_deep_update_ti >= cfg.memory.deep_update_every
+        state = _maybe_memorize(net, cfg, state, frame_p, feats, key, shrinkage,
+                                selection, prob_with_bg[1:], None, True, deep_due,
+                                obj_valid_new, hw)
+        return (state, unpad(prob_with_bg, pad, axes=(-2, -1)),
+                unpad(logits_with_bg, pad, axes=(-2, -1)))

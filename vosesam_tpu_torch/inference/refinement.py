@@ -25,6 +25,7 @@ from vosesam_tpu_torch.config import FrameworkConfig
 from vosesam_tpu_torch.models.sam import predictor
 from vosesam_tpu_torch.ops import prompts as prompt_ops
 from vosesam_tpu_torch.ops.image import resize_bilinear, resize_mask_prompt
+from vosesam_tpu_torch.utils import profiling
 
 
 class RefinementResult(NamedTuple):
@@ -44,46 +45,48 @@ def refine_masks(
     obj_valid: torch.Tensor,         # (F, O) bool
     cfg: FrameworkConfig,
 ) -> RefinementResult:
-    rcfg, scfg = cfg.refinement, cfg.sam
-    f, o, h, w = xmem_masks.shape
-    dev = xmem_masks.device
-    pack = prompt_ops.build_prompt_pack(rcfg.mode, xmem_masks, obj_valid, rcfg)
+    with profiling.span("refine"):
+        rcfg, scfg = cfg.refinement, cfg.sam
+        f, o, h, w = xmem_masks.shape
+        dev = xmem_masks.device
+        with profiling.span("refine.prompts"):
+            pack = prompt_ops.build_prompt_pack(rcfg.mode, xmem_masks, obj_valid, rcfg)
 
-    mask_prompts = None
-    if pack.use_mask:
-        # 4x the embedding grid; stretched over the whole prompt under
-        # encode_fixed_hw, else aspect-fit and filled with the minimum
-        prompt_hw = (emb.embedding.shape[1] * 4, emb.embedding.shape[2] * 4)
-        lg = xmem_logits.reshape(f * o, h, w)
-        if scfg.encode_fixed_hw is not None:
-            mask_prompts = resize_bilinear(lg, prompt_hw, axes=(-2, -1)).to(lg.dtype)
-        else:
-            mask_prompts = resize_mask_prompt(lg, prompt_hw)
+            mask_prompts = None
+            if pack.use_mask:
+                # 4x the embedding grid; stretched over the whole prompt under
+                # encode_fixed_hw, else aspect-fit and filled with the minimum
+                prompt_hw = (emb.embedding.shape[1] * 4, emb.embedding.shape[2] * 4)
+                lg = xmem_logits.reshape(f * o, h, w)
+                if scfg.encode_fixed_hw is not None:
+                    mask_prompts = resize_bilinear(lg, prompt_hw, axes=(-2, -1)).to(lg.dtype)
+                else:
+                    mask_prompts = resize_mask_prompt(lg, prompt_hw)
 
-    frame_of = torch.arange(f, device=dev).repeat_interleave(o)
-    low_res, iou = predictor.predict_low_res(
-        sam, emb, pack.coords.reshape(f * o, -1, 2), pack.labels.reshape(f * o, -1),
-        mask_prompts, scfg, frame_of=frame_of)
-    tok = predictor.select_token(iou, scfg, scfg.multimask_output)
-    best = torch.gather(low_res, 1, tok[:, None, None, None].expand(
-        -1, 1, *low_res.shape[-2:]))[:, 0]
-    logits_full = predictor.postprocess_masks(best, emb.input_hw, emb.orig_hw)
-    sam_masks = (logits_full > scfg.mask_threshold).reshape(f, o, h, w)
-    sam_scores = torch.gather(iou, 1, tok[:, None])[:, 0].reshape(f, o).float()
+        frame_of = torch.arange(f, device=dev).repeat_interleave(o)
+        low_res, iou = predictor.predict_low_res(
+            sam, emb, pack.coords.reshape(f * o, -1, 2), pack.labels.reshape(f * o, -1),
+            mask_prompts, scfg, frame_of=frame_of)
+        tok = predictor.select_token(iou, scfg, scfg.multimask_output)
+        best = torch.gather(low_res, 1, tok[:, None, None, None].expand(
+            -1, 1, *low_res.shape[-2:]))[:, 0]
+        logits_full = predictor.postprocess_masks(best, emb.input_hw, emb.orig_hw)
+        sam_masks = (logits_full > scfg.mask_threshold).reshape(f, o, h, w)
+        sam_scores = torch.gather(iou, 1, tok[:, None])[:, 0].reshape(f, o).float()
 
-    keep = pack.has_prompt
-    if rcfg.optimized:
-        keep = keep & (sam_scores >= rcfg.score_gate)
-    final_masks = torch.where(keep[..., None, None], sam_masks, xmem_masks > 0.5) \
-        & obj_valid[..., None, None]
-    neg_inf = torch.full((), -math.inf, device=dev)
-    final_scores = torch.where(keep, sam_scores, xmem_scores.float())
-    final_scores = torch.where(obj_valid, final_scores, neg_inf)
+        keep = pack.has_prompt
+        if rcfg.optimized:
+            keep = keep & (sam_scores >= rcfg.score_gate)
+        final_masks = torch.where(keep[..., None, None], sam_masks, xmem_masks > 0.5) \
+            & obj_valid[..., None, None]
+        neg_inf = torch.full((), -math.inf, device=dev)
+        final_scores = torch.where(keep, sam_scores, xmem_scores.float())
+        final_scores = torch.where(obj_valid, final_scores, neg_inf)
 
-    claim = torch.where(final_masks, final_scores[..., None, None], neg_inf)
-    winner = torch.argmax(claim, dim=1)
-    indexed = torch.where(final_masks.any(1), winner + 1, 0).to(torch.int32)
-    return RefinementResult(final_masks, final_scores, indexed, keep)
+        claim = torch.where(final_masks, final_scores[..., None, None], neg_inf)
+        winner = torch.argmax(claim, dim=1)
+        indexed = torch.where(final_masks.any(1), winner + 1, 0).to(torch.int32)
+        return RefinementResult(final_masks, final_scores, indexed, keep)
 
 
 def xmem_object_scores(prob_no_bg: torch.Tensor) -> torch.Tensor:

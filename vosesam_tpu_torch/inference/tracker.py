@@ -38,6 +38,7 @@ from vosesam_tpu_torch.inference.refinement import (
 from vosesam_tpu_torch.memory.rings import grow_objects
 from vosesam_tpu_torch.models.sam import predictor
 from vosesam_tpu_torch.models.xmem.network import XMem
+from vosesam_tpu_torch.utils import profiling
 from vosesam_tpu_torch.utils.mask_mapper import MaskMapper
 from vosesam_tpu_torch.viz.painter import paint_indexed
 
@@ -57,8 +58,9 @@ def track_frame(
     without refinement)."""
     o = cfg.xmem.max_objects
     state, prob, logits = core.step(net, state, frame, cfg)
-    masks, indexed = masks_from_prob(prob, o)
-    scores = xmem_object_scores(prob[1:])
+    with profiling.span("track.masks"):
+        masks, indexed = masks_from_prob(prob, o)
+        scores = xmem_object_scores(prob[1:])
     if cfg.refinement.use_refinement:
         if sam is None:
             raise ValueError("refinement enabled but no SAM model given")
@@ -68,7 +70,8 @@ def track_frame(
         indexed, scores, used_sam = res.indexed[0], res.scores[0], res.used_sam[0]
     else:
         used_sam = None
-    painted = paint_indexed(frame, indexed, o) if paint else frame
+    with profiling.span("track.remap"):
+        painted = paint_indexed(frame, indexed, o) if paint else frame
     return state, indexed, logits, scores, painted, used_sam
 
 
@@ -85,9 +88,11 @@ def track_first_frame(
     on the first frame, base_tracker.py:121-131)."""
     o = cfg.xmem.max_objects
     state, prob, logits = core.step_with_mask(net, state, frame, mask, mask_valid, cfg)
-    _, indexed = masks_from_prob(prob, o)
-    scores = xmem_object_scores(prob[1:])
-    painted = paint_indexed(frame, indexed, o) if paint else frame
+    with profiling.span("track.masks"):
+        _, indexed = masks_from_prob(prob, o)
+        scores = xmem_object_scores(prob[1:])
+    with profiling.span("track.remap"):
+        painted = paint_indexed(frame, indexed, o) if paint else frame
     return state, indexed, logits, scores, painted
 
 
@@ -191,40 +196,51 @@ class Tracker:
     ):
         """base_tracker.py:97-212. Returns (final_mask (H, W) uint8 with the
         original palette labels, logits, painted_image, scores list)."""
-        ft = torch.from_numpy(np.ascontiguousarray(frame)).to(self.device)
-        if first_frame_annotation is not None:
-            if self._frames_tracked > 0:
-                self._mid_video_add = True
-            onehot, new_labels = self.mapper.convert_mask(first_frame_annotation)
-            n = self.mapper.num_objects
-            budget = self.cfg.xmem.max_objects
-            if n > budget:
-                raise ValueError(
-                    f"{n} objects exceed the static budget max_objects={budget}")
-            self._ensure_state(frame, n_objects=n)
-            o = self._o_cap
-            mask = np.zeros((o,) + frame.shape[:2], np.float32)
-            valid = np.zeros((o,), bool)
-            for i, lbl in enumerate(new_labels):
-                mask[lbl - 1] = onehot[i]
-                valid[lbl - 1] = True
-            self.state, indexed, logits, scores, painted = track_first_frame(
-                self.net, self.state, ft, torch.from_numpy(mask).to(self.device),
-                torch.from_numpy(valid).to(self.device), self._session_cfg(None), self.paint)
-        else:
-            self._ensure_state(frame)
-            self.state, indexed, logits, scores, painted, used_sam = track_frame(
-                self.net, self.sam, self.state, ft, self._track_cfg(), self.paint)
-            self._count_kept(used_sam)
-        self._frames_tracked += 1
+        with profiling.span("track.loop"):
+            with profiling.span("track.upload"):
+                ft = torch.from_numpy(np.ascontiguousarray(frame)).to(self.device)
+            if first_frame_annotation is not None:
+                if self._frames_tracked > 0:
+                    self._mid_video_add = True
+                with profiling.span("track.remap"):
+                    onehot, new_labels = self.mapper.convert_mask(first_frame_annotation)
+                n = self.mapper.num_objects
+                budget = self.cfg.xmem.max_objects
+                if n > budget:
+                    raise ValueError(
+                        f"{n} objects exceed the static budget max_objects={budget}")
+                self._ensure_state(frame, n_objects=n)
+                o = self._o_cap
+                with profiling.span("track.upload"):
+                    mask = np.zeros((o,) + frame.shape[:2], np.float32)
+                    valid = np.zeros((o,), bool)
+                    for i, lbl in enumerate(new_labels):
+                        mask[lbl - 1] = onehot[i]
+                        valid[lbl - 1] = True
+                    mask_t = torch.from_numpy(mask).to(self.device)
+                    valid_t = torch.from_numpy(valid).to(self.device)
+                self.state, indexed, logits, scores, painted = track_first_frame(
+                    self.net, self.state, ft, mask_t, valid_t, self._session_cfg(None),
+                    self.paint)
+            else:
+                self._ensure_state(frame)
+                self.state, indexed, logits, scores, painted, used_sam = track_frame(
+                    self.net, self.sam, self.state, ft, self._track_cfg(), self.paint)
+                with profiling.span("track.masks"):
+                    self._count_kept(used_sam)
+            self._frames_tracked += 1
 
-        indexed_np = indexed.cpu().numpy()
-        logits_np = logits.cpu().numpy()
-        if self._inner_dir and first_frame_annotation is None:
-            self._dump_inner(logits_np, indexed_np)
-        final = self.mapper.remap_index_mask(indexed_np).astype(np.uint8)
-        return (final, logits_np, painted.cpu().numpy() if self.paint else frame,
-                self._live_scores(scores.cpu().numpy(), indexed_np))
+            with profiling.span("track.download"):
+                indexed_np = indexed.cpu().numpy()
+                logits_np = logits.cpu().numpy()
+                painted_np = painted.cpu().numpy() if self.paint else frame
+                scores_np = scores.cpu().numpy()
+            with profiling.span("track.remap"):
+                if self._inner_dir and first_frame_annotation is None:
+                    self._dump_inner(logits_np, indexed_np)
+                final = self.mapper.remap_index_mask(indexed_np).astype(np.uint8)
+                live = self._live_scores(scores_np, indexed_np)
+            return final, logits_np, painted_np, live
 
     def _dump_inner(self, logits: np.ndarray, refined: np.ndarray) -> None:
         """The XMem mask (re-derived from the logits, which refinement does
@@ -260,32 +276,38 @@ class Tracker:
         if self.state is None:
             raise RuntimeError("track_batch needs a seeded tracker: call "
                                "track(frame, first_frame_annotation) first")
-        masks_out, painted_out, scores_out = [], [], []
-        n_full = (len(frames) // chunk) * chunk
-        for i0 in range(0, n_full, chunk):
-            cfg = self._track_cfg()
-            o = cfg.xmem.max_objects
-            fb = torch.from_numpy(np.ascontiguousarray(np.stack(frames[i0:i0 + chunk]))
-                                  ).to(self.device)
-            self.state, indexed, scores, used_sam = track_chunk(
-                self.net, self.sam, self.state, fb, cfg)
-            self._count_kept(used_sam)
-            self._frames_tracked += chunk
-            painted = ([paint_indexed(fb[j], indexed[j], o) for j in range(chunk)]
-                       if paint else None)
-            idx_np = indexed.cpu().numpy()
-            sc_np = scores.cpu().numpy()
-            for j in range(chunk):
-                masks_out.append(self.mapper.remap_index_mask(idx_np[j]).astype(np.uint8))
-                scores_out.append(self._live_scores(sc_np[j], idx_np[j]))
+        with profiling.span("track.loop"):
+            masks_out, painted_out, scores_out = [], [], []
+            n_full = (len(frames) // chunk) * chunk
+            for i0 in range(0, n_full, chunk):
+                cfg = self._track_cfg()
+                o = cfg.xmem.max_objects
+                with profiling.span("track.upload"):
+                    fb = torch.from_numpy(np.ascontiguousarray(np.stack(frames[i0:i0 + chunk]))
+                                          ).to(self.device)
+                self.state, indexed, scores, used_sam = track_chunk(
+                    self.net, self.sam, self.state, fb, cfg)
+                with profiling.span("track.masks"):
+                    self._count_kept(used_sam)
+                self._frames_tracked += chunk
                 if paint:
-                    painted_out.append(painted[j].cpu().numpy())
-        for f in frames[n_full:]:
-            m, _lg, p, s = self.track(f)
-            masks_out.append(m)
-            scores_out.append(s)
+                    with profiling.span("track.remap"):
+                        painted = [paint_indexed(fb[j], indexed[j], o) for j in range(chunk)]
+                with profiling.span("track.download"):
+                    idx_np = indexed.cpu().numpy()
+                    sc_np = scores.cpu().numpy()
+                    if paint:
+                        painted_out += [p.cpu().numpy() for p in painted]
+                with profiling.span("track.remap"):
+                    for j in range(chunk):
+                        masks_out.append(self.mapper.remap_index_mask(idx_np[j]).astype(np.uint8))
+                        scores_out.append(self._live_scores(sc_np[j], idx_np[j]))
+            for f in frames[n_full:]:
+                m, _lg, p, s = self.track(f)
+                masks_out.append(m)
+                scores_out.append(s)
+                if paint:
+                    painted_out.append(p)
             if paint:
-                painted_out.append(p)
-        if paint:
-            return masks_out, painted_out, scores_out
-        return masks_out, scores_out
+                return masks_out, painted_out, scores_out
+            return masks_out, scores_out

@@ -40,6 +40,7 @@ from vosesam_tpu_torch.models.layers import gelu_fast, layer_norm, linear
 from vosesam_tpu_torch.ops.image import device_const, resize_bilinear
 from vosesam_tpu_torch.ops.kernels import flash_attention as fa
 from vosesam_tpu_torch.ops.kernels import window_attention as wa
+from vosesam_tpu_torch.utils import profiling
 
 
 class _Attention(nn.Module):
@@ -163,14 +164,15 @@ def _attention(x: torch.Tensor, attn: _Attention, hw: Tuple[int, int],
     qkv = linear(x.reshape(b, n, c), attn.qkv).reshape(b, n, 3, heads, hd)
     q, k, v = qkv.unbind(2)
     if global_block:
-        bias_h, bias_w = factorized_rel_pos_bias(q, attn.rel_pos_h, attn.rel_pos_w, hw)
-        # the strided (b, heads, n, hd) views of the fused projection, as they are
-        args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                bias_h.contiguous(), bias_w.contiguous(), hw)
-        if cfg.use_flash_attention:
-            out = fa.flash_attention_relpos(*args)
-        else:
-            out = fa.flash_attention_relpos_plain(*args)
+        with profiling.span("sam.global_attention"):
+            bias_h, bias_w = factorized_rel_pos_bias(q, attn.rel_pos_h, attn.rel_pos_w, hw)
+            # the strided (b, heads, n, hd) views of the fused projection, as they are
+            args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    bias_h.contiguous(), bias_w.contiguous(), hw)
+            if cfg.use_flash_attention:
+                out = fa.flash_attention_relpos(*args)
+            else:
+                out = fa.flash_attention_relpos_plain(*args)
         return _row_parallel(out.transpose(1, 2).reshape(b, n, cl), attn.proj,
                              attn.tp_group).reshape(b, h, w, c)
     impl = cfg.windowed_attention_impl

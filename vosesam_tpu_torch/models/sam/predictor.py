@@ -23,6 +23,7 @@ from vosesam_tpu_torch.config import SAMConfig
 from vosesam_tpu_torch.device import DeviceLike, resolve_device
 from vosesam_tpu_torch.models.sam import image_encoder, mask_decoder, prompt_encoder
 from vosesam_tpu_torch.ops.image import device_const, resize_bilinear, sam_input_resize
+from vosesam_tpu_torch.utils import profiling
 
 SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
 SAM_PIXEL_STD = (58.395, 57.12, 57.375)
@@ -139,14 +140,15 @@ def preprocess(img: torch.Tensor, cfg: SAMConfig) -> Tuple[torch.Tensor, Tuple[i
 def encode_image(sam: Sam, img: torch.Tensor, cfg: SAMConfig) -> ImageEmbedding:
     """(F, H, W, 3) frames -> ImageEmbedding of F frames; compute dtype
     follows the weights."""
-    x, input_hw = preprocess(img, cfg)
-    x = x.to(sam.image_encoder.patch_embed.proj.weight.dtype)
-    orig_hw = tuple(img.shape[-3:-1])
-    if cfg.hq:
-        emb, interm = image_encoder.vit_encode(sam.image_encoder, x, return_interm=True)
-        return ImageEmbedding(emb, interm[0], tuple(input_hw), orig_hw)
-    emb = image_encoder.vit_encode(sam.image_encoder, x)
-    return ImageEmbedding(emb, None, tuple(input_hw), orig_hw)
+    with profiling.span("sam.encode"):
+        x, input_hw = preprocess(img, cfg)
+        x = x.to(sam.image_encoder.patch_embed.proj.weight.dtype)
+        orig_hw = tuple(img.shape[-3:-1])
+        if cfg.hq:
+            emb, interm = image_encoder.vit_encode(sam.image_encoder, x, return_interm=True)
+            return ImageEmbedding(emb, interm[0], tuple(input_hw), orig_hw)
+        emb = image_encoder.vit_encode(sam.image_encoder, x)
+        return ImageEmbedding(emb, None, tuple(input_hw), orig_hw)
 
 
 # ------------------------------------------------------------------ decode
@@ -178,20 +180,21 @@ def predict_low_res(
     """Decode without full-resolution postprocessing: (low_res (B, n_tokens,
     4h, 4w) logits, iou (B, n_tokens)), so that callers upsample only the
     token they keep."""
-    grid = tuple(emb.embedding.shape[1:3])
-    model_hw = (grid[0] * cfg.patch_size, grid[1] * cfg.patch_size)
-    pe = sam.prompt_encoder
-    if frame_of is None:
-        frame_of = torch.zeros(coords.shape[0], dtype=torch.long, device=coords.device)
-    sparse = prompt_encoder.encode_points(
-        pe, transform_coords(coords, emb.orig_hw, cfg), labels, model_hw)
-    if mask_input is not None:
-        dense = prompt_encoder.encode_mask(pe, mask_input)
-    else:
-        dense = prompt_encoder.no_mask_dense(pe, grid)
-    return mask_decoder.decode_masks(
-        sam.mask_decoder, emb.embedding, frame_of, prompt_encoder.dense_pe(pe, grid),
-        sparse, dense, interm_vit=emb.interm)
+    with profiling.span("sam.decode"):
+        grid = tuple(emb.embedding.shape[1:3])
+        model_hw = (grid[0] * cfg.patch_size, grid[1] * cfg.patch_size)
+        pe = sam.prompt_encoder
+        if frame_of is None:
+            frame_of = torch.zeros(coords.shape[0], dtype=torch.long, device=coords.device)
+        sparse = prompt_encoder.encode_points(
+            pe, transform_coords(coords, emb.orig_hw, cfg), labels, model_hw)
+        if mask_input is not None:
+            dense = prompt_encoder.encode_mask(pe, mask_input)
+        else:
+            dense = prompt_encoder.no_mask_dense(pe, grid)
+        return mask_decoder.decode_masks(
+            sam.mask_decoder, emb.embedding, frame_of, prompt_encoder.dense_pe(pe, grid),
+            sparse, dense, interm_vit=emb.interm)
 
 
 class SamPrediction(NamedTuple):

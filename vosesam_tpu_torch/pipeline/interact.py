@@ -29,6 +29,7 @@ import torch
 from vosesam_tpu_torch.config import SAMConfig
 from vosesam_tpu_torch.device import DeviceLike, resolve_device
 from vosesam_tpu_torch.models.sam import predictor
+from vosesam_tpu_torch.utils import profiling
 from vosesam_tpu_torch.viz.painter import mask_painter, point_painter
 
 MASK_COLOR = (255, 99, 71)
@@ -43,15 +44,16 @@ def click_full(sam: predictor.Sam, emb: predictor.ImageEmbedding, image: torch.T
     """The whole click on the device: predict (and the optional second
     'both'-mode pass), mask selection and the three paint layers. Returns
     (mask (H, W) bool, low_res (4h, 4w) logits, painted (H, W, 3) uint8)."""
-    pred = predictor.predict(sam, emb, coords, labels, None, cfg)
-    mask, _, _, low_res = predictor.select_best(pred, cfg, multimask)
-    if two_pass:   # interact_tools.py:57-71
-        pred = predictor.predict(sam, emb, coords, labels, low_res, cfg)
+    with profiling.span("click.full"):
+        pred = predictor.predict(sam, emb, coords, labels, None, cfg)
         mask, _, _, low_res = predictor.select_best(pred, cfg, multimask)
-    painted = mask_painter(image, mask, MASK_COLOR)
-    painted = point_painter(painted, coords, labels == 1, POSITIVE_COLOR)
-    painted = point_painter(painted, coords, labels == 0, NEGATIVE_COLOR)
-    return mask, low_res, painted
+        if two_pass:   # interact_tools.py:57-71
+            pred = predictor.predict(sam, emb, coords, labels, low_res, cfg)
+            mask, _, _, low_res = predictor.select_best(pred, cfg, multimask)
+        painted = mask_painter(image, mask, MASK_COLOR)
+        painted = point_painter(painted, coords, labels == 1, POSITIVE_COLOR)
+        painted = point_painter(painted, coords, labels == 0, NEGATIVE_COLOR)
+        return mask, low_res, painted
 
 
 class SamController:
@@ -92,7 +94,11 @@ class SamController:
         # two passes when positive and negative clicks mix (:57-71)
         two_pass = bool(len(labels_np) > 1 and labels_np[-1] == 1
                         and (labels_np == 0).any())
-        mask, low_res, painted = click_full(
-            self.sam, self.emb, self._upload(image), torch.from_numpy(pts).to(self.device),
-            torch.from_numpy(lbl).to(self.device), self.cfg, multimask, two_pass)
-        return mask.cpu().numpy(), low_res.cpu().numpy(), painted.cpu().numpy()
+        with profiling.span("click.upload"):
+            image_t = self._upload(image)
+            pts_t = torch.from_numpy(pts).to(self.device)
+            lbl_t = torch.from_numpy(lbl).to(self.device)
+        mask, low_res, painted = click_full(self.sam, self.emb, image_t, pts_t, lbl_t,
+                                            self.cfg, multimask, two_pass)
+        with profiling.span("click.download"):
+            return mask.cpu().numpy(), low_res.cpu().numpy(), painted.cpu().numpy()
