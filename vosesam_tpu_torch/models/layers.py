@@ -2,11 +2,19 @@
 
 Parameters live in `nn.Module`s whose state-dict names are the official
 PyTorch checkpoint names (`weight`, `bias`, `running_mean`, ...), kept in
-fp32; every layer casts them to the activation dtype at call time, so a bf16
-activation runs a bf16 convolution with fp32 master weights
-(`FrameworkConfig.dtype` / `param_dtype`). Inside the models activations are
-NCHW, PyTorch's layout; the models' public functions take and return the JAX
-package's channel-last layout.
+`FrameworkConfig.param_dtype`; a bf16 activation runs a bf16 convolution with
+fp32 master weights. What a layer derives from its parameters alone (the
+weight and bias in the activation dtype, BN's scale and shift, LayerNorm's
+fp32 affine) is computed by the same expressions on first use and kept on the
+module (`_derived`), keyed by the activation dtype and device and valid while
+every source tensor is the same object at the same `_version` and
+`data_ptr()` (so `copy_`, `load_state_dict`, an optimizer step, `.data`
+reassignment, `module.to` and a replaced parameter all rebuild it). With grad
+enabled nothing is kept or read: training sees the call-time graph.
+`PARAM_CACHE_COUNTS` counts hits, misses (builds) and those bypasses.
+
+Inside the models activations are NCHW, PyTorch's layout; the models' public
+functions take and return the JAX package's channel-last layout.
 
 `init_like_jax` draws random parameters with the JAX `*_init` scheme
 (He-normal fan-out convolutions, `layers.py:31-35`) from a numpy generator.
@@ -15,6 +23,7 @@ package's channel-last layout.
 from __future__ import annotations
 
 import math
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -44,44 +53,93 @@ class BatchNorm2d(nn.BatchNorm2d):
         return batch_norm(x, self)
 
 
+# Calls of the helpers below that reused kept tensors, that built them, and
+# that ran with grad enabled, keeping nothing.
+PARAM_CACHE_COUNTS: Dict[str, int] = {"hit": 0, "miss": 0, "bypass": 0}
+
+
+def reset_param_cache_counts() -> None:
+    for name in PARAM_CACHE_COUNTS:
+        PARAM_CACHE_COUNTS[name] = 0
+
+
+def _derived(module: nn.Module, key: Tuple, sources: Tuple[torch.Tensor, ...],
+             build: Callable[[], Tuple]) -> Tuple:
+    """`build()`, kept on `module` for `key` while each of `sources` is the
+    same tensor with the same `_version`, `data_ptr()`, dtype, shape and
+    strides; a miss rebuilds and replaces the entry. The entry holds a
+    detached alias of each source, so a replaced storage stays allocated and
+    no new one can reuse its address while the entry lives."""
+    if torch.is_grad_enabled():
+        PARAM_CACHE_COUNTS["bypass"] += 1
+        return build()
+    stamp = (key, *[(t._version, t.data_ptr(), t.dtype, t.shape, t.stride())
+                    for t in sources])
+    entry = module.__dict__.get("_derived_params")
+    if entry is not None and entry[0] == stamp and all(
+            a is b for a, b in zip(entry[1], sources)):
+        PARAM_CACHE_COUNTS["hit"] += 1
+        return entry[3]
+    PARAM_CACHE_COUNTS["miss"] += 1
+    out = build()
+    module.__dict__["_derived_params"] = (stamp, sources,
+                                          tuple(t.detach() for t in sources), out)
+    return out
+
+
+def _cast_params(mod: nn.Module, x: torch.Tensor):
+    """(weight, bias or None) of `mod` in `x`'s dtype."""
+    w, b = mod.weight, mod.bias
+    sources = (w,) if b is None else (w, b)
+    return _derived(mod, (x.dtype, x.device), sources,
+                    lambda: (w.to(x.dtype), None if b is None else b.to(x.dtype)))
+
+
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    w = conv.weight.to(x.dtype)
-    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    w, b = _cast_params(conv, x)
     return F.conv2d(x, w, b, conv.stride, conv.padding, conv.dilation, conv.groups)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    w = lin.weight.to(x.dtype)
-    b = None if lin.bias is None else lin.bias.to(x.dtype)
+    w, b = _cast_params(lin, x)
     return F.linear(x, w, b)
+
+
+def _bn_scale_shift(bn: nn.BatchNorm2d, dtype: torch.dtype):
+    inv = torch.rsqrt(bn.running_var.float() + bn.eps)
+    w = bn.weight.float()
+    scale = (w * inv).to(dtype)
+    shift = (bn.bias.float() - bn.running_mean.float() * w * inv).to(dtype)
+    return scale[:, None, None], shift[:, None, None]
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """NCHW inference BN from running statistics."""
-    inv = torch.rsqrt(bn.running_var.float() + bn.eps)
-    w = bn.weight.float()
-    scale = (w * inv).to(x.dtype)
-    shift = (bn.bias.float() - bn.running_mean.float() * w * inv).to(x.dtype)
-    return x * scale[:, None, None] + shift[:, None, None]
+    scale, shift = _derived(
+        bn, (x.dtype, x.device, bn.eps),
+        (bn.weight, bn.bias, bn.running_mean, bn.running_var),
+        lambda: _bn_scale_shift(bn, x.dtype))
+    return x * scale + shift
 
 
 def conv_transpose2d(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor:
     """NCHW transposed convolution with the official IOHW weight, in the
     input's dtype. The JAX package stores the same kernel HWIO and flips it
     (`layers.py:104-123`); `utils/checkpoint.py` converts between the two."""
-    w = conv.weight.to(x.dtype)
-    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    w, b = _cast_params(conv, x)
     return F.conv_transpose2d(x, w, b, conv.stride, conv.padding)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis computed in fp32 and cast back
     (`layers.py:137-141`; eps 1e-6 everywhere, as the JAX package)."""
+    w, b = _derived(ln, (x.device,), (ln.weight, ln.bias),
+                    lambda: (ln.weight.float(), ln.bias.float()))
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * ln.weight.float() + ln.bias.float()).to(x.dtype)
+    return (y * w + b).to(x.dtype)
 
 
 def gelu_fast(x: torch.Tensor) -> torch.Tensor:
