@@ -33,6 +33,7 @@ from vosesam_tpu_torch.ops import morphology as morph
 from vosesam_tpu_torch.pipeline import inpaint as tinp
 from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
 from vosesam_tpu_torch.utils.checkpoint import params_from_jax
+from tests.test_torch_e2fgvi import published_roundings
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import app as japp  # noqa: E402  (the JAX repo's root app.py)
@@ -40,6 +41,14 @@ import app as japp  # noqa: E402  (the JAX repo's root app.py)
 AGREEMENT = 0.999
 CLICKS = [(14.0, 12.0, True), (50.0, 35.0, False)]
 SECOND = (48.0, 34.0, True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _published_roundings():
+    """The JAX package's E2FGVI at the roundings the port follows
+    (`tests.test_torch_e2fgvi.published_roundings`)."""
+    with published_roundings():
+        yield
 
 
 @pytest.fixture(scope="module")

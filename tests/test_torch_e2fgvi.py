@@ -14,9 +14,20 @@ random weights rounding noise in a flow can move a sample across a cell
 border or be amplified through the propagation, so there a share of the
 values is held tightly (`_share_close`: >= 99% within 2e-3 of the
 reference's scale) and the maximum only loosely.
+
+Roundings. In two places the port follows the published E2FGVI code where
+the JAX package does not: the focal blocks' LayerNorm eps is nn.LayerNorm's
+1e-5 (the JAX package's `layer_norm` takes 1e-6), and the flows go back from
+SPyNet's multiple of 32 by plain bilinear interpolation (jax.image.resize
+antialiases that downscale). `published_roundings` runs the JAX package's
+generator and flow-completion loss with the published two; every comparison
+with JAX in the port's tests of the generator runs under it.
 """
 
+import contextlib
 import dataclasses
+import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +37,7 @@ import torch
 
 from vosesam_tpu.config import InpainterConfig as JInpainterConfig
 from vosesam_tpu.models.e2fgvi import generator as JG
+from vosesam_tpu.models.e2fgvi import losses as JL
 from vosesam_tpu.models.e2fgvi import modules as JM
 from vosesam_tpu.models.layers import conv_init
 from vosesam_tpu.ops.image import resize_bilinear_align_corners as j_align_corners
@@ -45,6 +57,39 @@ def _few_threads():
     torch.set_num_threads(min(before, 2))
     yield
     torch.set_num_threads(before)
+
+
+class _PublishedJax:
+    """`jax` as the JAX package's generator and flow loss see it under
+    `published_roundings`: `jax.image.resize` does not antialias."""
+
+    image = types.SimpleNamespace(resize=functools.partial(jax.image.resize, antialias=False))
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+
+@contextlib.contextmanager
+def published_roundings():
+    """The JAX package's E2FGVI generator and flow-completion loss at the
+    port's (the published) roundings: LayerNorm eps `TG.LN_EPS` in the focal
+    blocks, the flows resized without antialiasing. JAX's caches are cleared
+    on the way in and out, so no trace made under it outlives it."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JG, "layer_norm", functools.partial(JG.layer_norm, eps=TG.LN_EPS))
+        mp.setattr(JG, "jax", _PublishedJax())
+        mp.setattr(JL, "jax", _PublishedJax())
+        jax.clear_caches()
+        try:
+            yield
+        finally:
+            jax.clear_caches()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _published_roundings():
+    with published_roundings():
+        yield
 
 
 REL = 1e-4

@@ -31,6 +31,15 @@ from vosesam_tpu_torch.ops.image import resize_nearest
 from vosesam_tpu_torch.pipeline import inpaint as tinp
 from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
 from vosesam_tpu_torch.utils.checkpoint import params_from_jax
+from tests.test_torch_e2fgvi import published_roundings
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _published_roundings():
+    """The JAX package's E2FGVI at the roundings the port follows
+    (`tests.test_torch_e2fgvi.published_roundings`)."""
+    with published_roundings():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -31,6 +31,15 @@ from vosesam_tpu_torch.models.e2fgvi.losses import flow_completion_loss as t_flo
 from vosesam_tpu_torch.training import inpaint_data as TDATA
 from vosesam_tpu_torch.utils.checkpoint import params_from_jax
 from vosesam_tpu_torch.viz import flow as TFLOW
+from tests.test_torch_e2fgvi import published_roundings
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _published_roundings():
+    """The JAX package's E2FGVI at the roundings the port follows
+    (`tests.test_torch_e2fgvi.published_roundings`)."""
+    with published_roundings():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -56,6 +56,7 @@ from vosesam_tpu_torch.models.e2fgvi import discriminator as TD
 from vosesam_tpu_torch.models.e2fgvi import generator as TG
 from vosesam_tpu_torch.training import inpaint_trainer as TIT
 from vosesam_tpu_torch.utils.checkpoint import params_from_jax
+from tests.test_torch_e2fgvi import published_roundings
 
 JCFG = JInpainterConfig(num_blocks=1)
 TCFG = InpainterConfig(num_blocks=1)
@@ -65,6 +66,14 @@ GRAD_REL = 5e-3           # every leaf
 GRAD_REL_MOST = 1e-4      # >= 90% of the leaves
 LR = TIT.InpaintTrainConfig().lr
 ULP = 2.0 ** -23          # one rounding of an fp32 parameter, relative
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _published_roundings():
+    """The JAX package's E2FGVI at the roundings the port follows
+    (`tests.test_torch_e2fgvi.published_roundings`)."""
+    with published_roundings():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

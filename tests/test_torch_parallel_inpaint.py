@@ -140,13 +140,15 @@ def test_mesh_inpaint_matches_jax_mesh_inpaint(ranks, jparams):
     import jax
     from jax.sharding import Mesh
 
+    from tests.test_torch_e2fgvi import published_roundings
     from vosesam_tpu.config import InpainterConfig as JInpainterConfig
     from vosesam_tpu.pipeline import inpaint as jinp
 
     mesh = Mesh(np.asarray(jax.devices()[:RANKS]).reshape(RANKS, 1), ("data", "model"))
     frames, masks = _video()
-    want = jinp.Inpainter(cfg=JInpainterConfig(num_blocks=1), params=jparams,
-                          mesh=mesh).inpaint_efficient(frames, masks, dilate_radius=RADIUS)
+    with published_roundings():         # the roundings the port follows
+        want = jinp.Inpainter(cfg=JInpainterConfig(num_blocks=1), params=jparams,
+                              mesh=mesh).inpaint_efficient(frames, masks, dilate_radius=RADIUS)
     got = ranks[0]["mesh wb=1"]
     dil = _dilated(masks)
     inside = []

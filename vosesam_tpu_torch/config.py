@@ -240,7 +240,12 @@ class InpainterConfig:
     (inpainter/model/e2fgvi.py:133-209 — dead code in the reference):
     identical math except SoftComp carries a learned additive bias pinned
     to the fixed (60, 108) feature grid, so it only supports 240x432
-    inputs."""
+    inputs.
+
+    `hidden_dim`, `num_heads`, `window_size` and `focal_level` state the
+    E2FGVI-HQ checkpoint's widths; the generator checks them and builds
+    no others. `num_blocks` is the number of focal blocks it builds and
+    runs (8 in the checkpoint)."""
 
     hq: bool = True
     neighbor_stride: int = 5
@@ -273,6 +278,9 @@ class InpainterConfig:
     # arithmetic match the host path. False = the host-compositing
     # reference-shaped path.
     device_composite: bool = True
+    # The checkpoint's widths, stated, not chosen: `InpaintGenerator` builds
+    # hidden 512, 4 heads, (5, 9) windows and focal level 2, and refuses a
+    # config that states others (`generator.check_widths`).
     hidden_dim: int = 512
     num_blocks: int = 8
     num_heads: int = 4

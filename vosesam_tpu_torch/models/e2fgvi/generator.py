@@ -13,7 +13,12 @@ SoftSplit/SoftComp (output size passed at call time) is used.
 (`encoder.layers.N`, `feat_prop_module.deform_align.backward_`,
 `transformer.N.attn.qkv`, `update_spynet.basic_module...`), so an official
 state dict loads with `strict=True`; the functions mirror the JAX package's
-and take and return its channel-last activations.
+and take and return its channel-last activations. Two roundings follow the
+published code rather than the JAX package: the focal blocks' LayerNorm eps
+is nn.LayerNorm's 1e-5 (`LN_EPS`; the JAX package's `layer_norm` takes
+1e-6), and the flows go back from SPyNet's multiple of 32 by plain bilinear
+interpolation (F.interpolate, as flow_comp.py's SPyNet; jax.image.resize antialiases
+that downscale).
 
 The temporal focal window attention (tfocal_transformer_hq.py:173-428) is
 one fused softmax over [window | rolled | pooled] keys per window and stays
@@ -21,7 +26,10 @@ plain PyTorch, as it stays an XLA path in the JAX package: its windows are
 T x 5 x 9 tokens. The deformable alignment of the propagation runs through
 the hand-written sampling kernel (`modules.modulated_deform_conv`), whose
 gradient is the kernel's backward on the card. `generator_forward(remat=True)`
-is the GAN trainer's (`training/inpaint_trainer.py`).
+is the GAN trainer's (`training/inpaint_trainer.py`). `generator_forward`
+marks its stages with profiler spans (`utils/profiling.span`):
+`e2fgvi.flow`, `e2fgvi.encode`, `e2fgvi.propagate`, `e2fgvi.transformer`
+(soft split, the focal blocks, soft composite) and `e2fgvi.decode`.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vosesam_tpu_torch.config import InpainterConfig
@@ -40,6 +49,7 @@ from vosesam_tpu_torch.models.e2fgvi import modules as M
 from vosesam_tpu_torch.models.layers import Conv2d, Linear, layer_norm, linear
 from vosesam_tpu_torch.ops.image import device_const, resize_bilinear, \
     resize_bilinear_align_corners
+from vosesam_tpu_torch.utils import profiling
 
 WINDOW = (5, 9)
 EXPAND = (2, 4)           # window // 2
@@ -49,6 +59,8 @@ PADDING = (3, 3)
 HIDDEN = 512
 CHANNEL = 128             # encoder output channels (channel // 2 in the reference)
 HEADS = 4
+FOCAL_LEVEL = 2           # the window's keys plus one pooled level
+LN_EPS = 1e-5             # nn.LayerNorm's default, which e2fgvi_hq.py's blocks use
 
 ENC_SPEC = [
     # (cin, cout, stride, groups)
@@ -362,7 +374,7 @@ def focal_block_forward(p: FocalBlock, x: torch.Tensor, output_size: Tuple[int, 
     b, t, fh, fw, c = x.shape
     wh, ww = WINDOW
     shortcut = x
-    y = layer_norm(x, p.norm1)
+    y = layer_norm(x, p.norm1, LN_EPS)
 
     # pad to window multiples
     ph = -fh % wh
@@ -381,7 +393,7 @@ def focal_block_forward(p: FocalBlock, x: torch.Tensor, output_size: Tuple[int, 
     att = focal_attention(p, yp, pooled, valid, frame_valid)[:, :, :fh, :fw]
     x = shortcut + att
 
-    y = layer_norm(x, p.norm2)
+    y = layer_norm(x, p.norm2, LN_EPS)
     y = M.fusion_feed_forward(p.mlp, y.reshape(b, t * fh * fw, c), output_size, KERNEL, STRIDE,
                               PADDING).reshape(b, t, fh, fw, c)
     x = x + y
@@ -390,11 +402,26 @@ def focal_block_forward(p: FocalBlock, x: torch.Tensor, output_size: Tuple[int, 
 
 # ----------------------------------------------------------------- generator
 
+def check_widths(cfg: InpainterConfig) -> None:
+    """Raise unless `cfg` states the widths this generator builds (the
+    checkpoint's: hidden 512, 4 heads, (5, 9) windows, focal level 2)."""
+    built = {"hidden_dim": HIDDEN, "num_heads": HEADS, "window_size": WINDOW,
+             "focal_level": FOCAL_LEVEL}
+    stated = {"hidden_dim": cfg.hidden_dim, "num_heads": cfg.num_heads,
+              "window_size": tuple(cfg.window_size), "focal_level": cfg.focal_level}
+    wrong = {k: v for k, v in stated.items() if v != built[k]}
+    if wrong:
+        raise ValueError(f"InpainterConfig states {wrong}, but InpaintGenerator builds the "
+                         f"E2FGVI-HQ checkpoint's widths {built}")
+
+
 class InpaintGenerator(nn.Module):
-    """The generator's weights under the official state-dict names."""
+    """The generator's weights under the official state-dict names. Refuses
+    a config whose widths are not the ones it builds (`check_widths`)."""
 
     def __init__(self, cfg: InpainterConfig = InpainterConfig()) -> None:
         super().__init__()
+        check_widths(cfg)
         self.encoder = Encoder()
         self.decoder = Decoder()
         self.feat_prop_module = BidirectionalPropagation(CHANNEL)
@@ -465,7 +492,9 @@ def quarter_flows(spynet: M.SPyNet, frames01: torch.Tensor, run=None
     f_bwd = run(M.spynet_flow, spynet, second, first)
 
     def down_flow(f):
-        f = resize_bilinear(f, (sh, sw))
+        # plain bilinear, no antialiasing, as the published SPyNet resizes back
+        f = F.interpolate(f.permute(0, 3, 1, 2), size=(sh, sw), mode="bilinear",
+                          align_corners=False).permute(0, 2, 3, 1)
         f = f * torch.tensor([sw / uw, sh / uh], dtype=f.dtype, device=f.device)
         return f.reshape(b, t - 1, sh, sw, 2)
 
@@ -519,29 +548,35 @@ def generator_forward(
         return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
     # bidirectional flows on the local window (frames mapped back to [0, 1])
-    flows_forward, flows_backward = quarter_flows(
-        net.update_spynet, (masked_frames[:, :lt] + 1.0) / 2.0, ckpt)
+    with profiling.span("e2fgvi.flow"):
+        flows_forward, flows_backward = quarter_flows(
+            net.update_spynet, (masked_frames[:, :lt] + 1.0) / 2.0, ckpt)
 
-    enc = ckpt(encoder_forward, net.encoder, masked_frames.flatten(0, 1))  # (B*T, h/4, w/4, 128)
+    with profiling.span("e2fgvi.encode"):
+        # (B*T, h/4, w/4, 128)
+        enc = ckpt(encoder_forward, net.encoder, masked_frames.flatten(0, 1))
     eh, ew = enc.shape[1:3]
     enc = enc.reshape(b, t, eh, ew, CHANNEL)
-    local_feat = ckpt(bidirectional_propagation, net.feat_prop_module, enc[:, :lt],
-                      flows_backward, flows_forward)
+    with profiling.span("e2fgvi.propagate"):
+        local_feat = ckpt(bidirectional_propagation, net.feat_prop_module, enc[:, :lt],
+                          flows_backward, flows_forward)
     enc_feat = torch.cat([local_feat, enc[:, lt:]], dim=1)
 
-    tokens = M.soft_split(net.ss, enc_feat.flatten(0, 1), KERNEL, STRIDE, PADDING)
-    fh = (eh + 2 * PADDING[0] - KERNEL[0]) // STRIDE[0] + 1
-    fw = (ew + 2 * PADDING[1] - KERNEL[1]) // STRIDE[1] + 1
-    x = tokens.reshape(b, t, fh, fw, HIDDEN)
-    for blk in net.transformer[:cfg.num_blocks]:
-        x = ckpt(lambda b_, x_: focal_block_forward(b_, x_, (eh, ew), frame_valid=frame_valid),
-                 blk, x)
-    trans = M.soft_comp(net.sc, x.reshape(b * t, fh * fw, HIDDEN), (eh, ew), KERNEL, STRIDE,
-                        PADDING)
+    with profiling.span("e2fgvi.transformer"):
+        tokens = M.soft_split(net.ss, enc_feat.flatten(0, 1), KERNEL, STRIDE, PADDING)
+        fh = (eh + 2 * PADDING[0] - KERNEL[0]) // STRIDE[0] + 1
+        fw = (ew + 2 * PADDING[1] - KERNEL[1]) // STRIDE[1] + 1
+        x = tokens.reshape(b, t, fh, fw, HIDDEN)
+        for blk in net.transformer[:cfg.num_blocks]:
+            x = ckpt(lambda b_, x_: focal_block_forward(b_, x_, (eh, ew),
+                                                        frame_valid=frame_valid), blk, x)
+        trans = M.soft_comp(net.sc, x.reshape(b * t, fh * fw, HIDDEN), (eh, ew), KERNEL,
+                            STRIDE, PADDING)
     enc_feat = enc_feat + trans.reshape(b, t, eh, ew, CHANNEL)
 
-    out = torch.tanh(ckpt(decoder_forward, net.decoder, enc_feat.flatten(0, 1))
-                     ).reshape(b, t, h, w, 3)
+    with profiling.span("e2fgvi.decode"):
+        out = torch.tanh(ckpt(decoder_forward, net.decoder, enc_feat.flatten(0, 1))
+                         ).reshape(b, t, h, w, 3)
     if batched:
         return out, (flows_forward, flows_backward)
     return out[0], (flows_forward[0], flows_backward[0])

@@ -132,7 +132,8 @@ def conv_transpose2d(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor:
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis computed in fp32 and cast back
-    (`layers.py:137-141`; eps 1e-6 everywhere, as the JAX package)."""
+    (`layers.py:137-141`; eps 1e-6 by default, as the JAX package; the
+    E2FGVI generator's focal blocks pass the published 1e-5)."""
     w, b = _derived(ln, (x.device,), (ln.weight, ln.bias),
                     lambda: (ln.weight.float(), ln.bias.float()))
     xf = x.float()

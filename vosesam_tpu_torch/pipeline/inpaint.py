@@ -22,6 +22,12 @@ fp32 at the process's precision settings: PyTorch's default runs fp32
 convolutions in TF32 on the card (`torch.backends.cudnn.allow_tf32`), as it
 does for the reference implementation; pixels outside the dilated mask are
 the input's in either setting.
+
+Profiler spans (`utils/profiling.span`): `inpaint.video` (a whole
+`inpaint` call), `inpaint.prepare` (upload, dilation, normalisation,
+flip-pad), `inpaint.predict` (a group's gather and generator call, with the
+generator's own `e2fgvi.*` spans inside), `inpaint.composite` (the device
+composite and blend) and `inpaint.download` (the uint8 copy to the host).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from vosesam_tpu_torch.device import DeviceLike, resolve_device
 from vosesam_tpu_torch.models.e2fgvi import generator as G
 from vosesam_tpu_torch.ops import morphology as morph
 from vosesam_tpu_torch.ops.image import resize_bilinear, resize_nearest
+from vosesam_tpu_torch.utils import profiling
 
 MOD_H, MOD_W = 60, 108     # the generator's sizes are multiples of these
 
@@ -161,12 +168,13 @@ class Inpainter:
         run through the generator; slots from `n_valid` on are padding. A
         group of several plans (static windows, one shape) is one batched
         generator call, or with a mesh one window at a time on each rank."""
-        if self.mesh is not None and plans[0][2] is not None:
-            from vosesam_tpu_torch.parallel.inpaint_shard import sharded_predictions
+        with profiling.span("inpaint.predict"):
+            if self.mesh is not None and plans[0][2] is not None:
+                from vosesam_tpu_torch.parallel.inpaint_shard import sharded_predictions
 
-            return sharded_predictions(lambda p: self._predict_local(padded, [p])[0], plans,
-                                       self.mesh, self.cfg.window_batch)
-        return self._predict_local(padded, plans)
+                return sharded_predictions(lambda p: self._predict_local(padded, [p])[0],
+                                           plans, self.mesh, self.cfg.window_batch)
+            return self._predict_local(padded, plans)
 
     def _predict_local(self, padded: torch.Tensor, plans) -> List[torch.Tensor]:
         dev = padded.device
@@ -184,24 +192,25 @@ class Inpainter:
         """Upload, mask dilation, optional downscale, normalisation and
         flip-pad, all on the device. Returns ([0, 255] frames (T, H, W, 3),
         float masks (T, H, W), the padded [-1, 1] masked video, H, W)."""
-        h, w = frames[0].shape[:2]
-        frames_u8 = torch.from_numpy(np.stack([np.asarray(f) for f in frames])).to(self.device)
-        masks_b = torch.from_numpy(np.stack([np.asarray(m) > 0 for m in masks])).to(self.device)
-        if radius > 0:
-            # the reference dilates once with a (2r+1) kernel; r rounds of
-            # 3x3 are the same set
-            masks_b = morph.dilate(masks_b, radius)
-        masks_f = masks_b.float()
-        if ratio != 1.0:
-            nh = max(50, int(h * ratio)) // 2 * 2
-            nw = max(50, int(w * ratio)) // 2 * 2
-            frames_f = resize_bilinear(frames_u8.float(), (nh, nw))
-            masks_f = resize_nearest(masks_f, (nh, nw), axes=(-2, -1))
-            h, w = nh, nw
-        else:
-            frames_f = frames_u8.float()
-        masked = (frames_f / 127.5 - 1.0) * (1.0 - masks_f[..., None])
-        return frames_f, masks_f, _flip_pad(masked), h, w
+        with profiling.span("inpaint.prepare"):
+            h, w = frames[0].shape[:2]
+            frames_u8 = torch.from_numpy(np.stack([np.asarray(f) for f in frames])).to(self.device)
+            masks_b = torch.from_numpy(np.stack([np.asarray(m) > 0 for m in masks])).to(self.device)
+            if radius > 0:
+                # the reference dilates once with a (2r+1) kernel; r rounds of
+                # 3x3 are the same set
+                masks_b = morph.dilate(masks_b, radius)
+            masks_f = masks_b.float()
+            if ratio != 1.0:
+                nh = max(50, int(h * ratio)) // 2 * 2
+                nw = max(50, int(w * ratio)) // 2 * 2
+                frames_f = resize_bilinear(frames_u8.float(), (nh, nw))
+                masks_f = resize_nearest(masks_f, (nh, nw), axes=(-2, -1))
+                h, w = nh, nw
+            else:
+                frames_f = frames_u8.float()
+            masked = (frames_f / 127.5 - 1.0) * (1.0 - masks_f[..., None])
+            return frames_f, masks_f, _flip_pad(masked), h, w
 
     def _windows(self, t: int):
         """The subset's window plans in anchor order, each (ids, num_local,
@@ -261,17 +270,22 @@ class Inpainter:
         comp = torch.zeros((t, h, w, 3), dtype=torch.float32, device=self.device)
         seen = torch.zeros((t,), dtype=torch.bool, device=self.device)
         for plans in groups:
-            for (ids, _, _, write_ids), pred in zip(plans, self._predict(padded, plans)):
-                w0, n = write_ids[0], len(write_ids)
-                seg = pred[w0 - ids[0]: w0 - ids[0] + n, :h, :w]
-                seg = (seg + 1.0) / 2.0 * 255.0
-                m = masks_f[w0:w0 + n, ..., None]
-                compseg = seg * m + frames_f[w0:w0 + n] * (1.0 - m)
-                old = comp[w0:w0 + n]
-                comp[w0:w0 + n] = torch.where(seen[w0:w0 + n, None, None, None],
-                                              0.5 * old + 0.5 * compseg, compseg)
-                seen[w0:w0 + n] = True
-        out = comp.clamp(0, 255).to(torch.uint8).cpu().numpy()
+            preds = self._predict(padded, plans)
+            with profiling.span("inpaint.composite"):
+                for (ids, _, _, write_ids), pred in zip(plans, preds):
+                    w0, n = write_ids[0], len(write_ids)
+                    seg = pred[w0 - ids[0]: w0 - ids[0] + n, :h, :w]
+                    seg = (seg + 1.0) / 2.0 * 255.0
+                    m = masks_f[w0:w0 + n, ..., None]
+                    compseg = seg * m + frames_f[w0:w0 + n] * (1.0 - m)
+                    old = comp[w0:w0 + n]
+                    comp[w0:w0 + n] = torch.where(seen[w0:w0 + n, None, None, None],
+                                                  0.5 * old + 0.5 * compseg, compseg)
+                    seen[w0:w0 + n] = True
+        with profiling.span("inpaint.composite"):
+            out = comp.clamp(0, 255).to(torch.uint8)
+        with profiling.span("inpaint.download"):
+            out = out.cpu().numpy()
         return [out[i] for i in range(t)]
 
     # ------------------------------------------------- host composite path
@@ -300,19 +314,20 @@ class Inpainter:
         ratio: float = 1.0, dilate_radius: Optional[int] = None,
     ) -> List[np.ndarray]:
         """base_inpainter.py:176-247: subset splitting with temporal context."""
-        cfg = self.cfg
-        t = len(frames)
-        n = cfg.num_subset_frames
-        if t <= n:
-            return self.inpaint_efficient(frames, masks, ratio, dilate_radius)
+        with profiling.span("inpaint.video"):
+            cfg = self.cfg
+            t = len(frames)
+            n = cfg.num_subset_frames
+            if t <= n:
+                return self.inpaint_efficient(frames, masks, ratio, dilate_radius)
 
-        out: List[np.ndarray] = []
-        for a, b, pre_ids, post_ids in subset_splits(t, cfg):
-            ids = pre_ids + list(range(a, b)) + post_ids
-            comp = self.inpaint_efficient([frames[i] for i in ids], [masks[i] for i in ids],
-                                          ratio, dilate_radius)
-            out.extend(comp[len(pre_ids): len(pre_ids) + (b - a)])
-        return out
+            out: List[np.ndarray] = []
+            for a, b, pre_ids, post_ids in subset_splits(t, cfg):
+                ids = pre_ids + list(range(a, b)) + post_ids
+                comp = self.inpaint_efficient([frames[i] for i in ids], [masks[i] for i in ids],
+                                              ratio, dilate_radius)
+                out.extend(comp[len(pre_ids): len(pre_ids) + (b - a)])
+            return out
 
 
 def subset_splits(t: int, cfg: InpainterConfig) -> List[Tuple[int, int, List[int], List[int]]]:
