@@ -11,15 +11,20 @@ signatures and channel-last layouts:
   - `segment` returns the aggregated distribution including background.
 Internally the convolutions run NCHW (the channel-last tensors are permuted
 views, so no copy is made when the memory format is channels_last).
+`encode_key` replays one CUDA graph of the key encoder per frame signature
+on the card (`KEY_GRAPH_COUNTS` counts replays, captures and eager calls).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import collections
+import operator
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.nn.modules.module import _global_forward_hooks, _global_forward_pre_hooks
 
 from vosesam_tpu_torch.config import XMemConfig
 from vosesam_tpu_torch.models.layers import Conv2d, init_like_jax, interpolate_bilinear
@@ -95,11 +100,28 @@ def xmem_init(cfg: XMemConfig, seed: int = 0,
 def encode_key(net: XMem, frame: torch.Tensor):
     """(H, W, 3) normalized frame -> (key (H/16, W/16, Ck), shrinkage
     (H/16, W/16, 1), selection (H/16, W/16, Ck), MultiScaleFeatures) —
-    network.py:40-70."""
-    f4, f8, f16 = net.key_encoder.features(_chw(frame)[None])
-    key, shrinkage, selection = net.key_proj(f16)
+    network.py:40-70.
+
+    On a CUDA device with grad disabled, outside another capture, the trunk
+    and the projection replay a CUDA graph captured for the frame's
+    signature (`_key_graphs`); elsewhere they run eagerly. Both run the
+    same kernels in the same order and return tensors of their own. A
+    forward hook on the trunk's modules keeps it eager (a replay would not
+    call it)."""
+    out = _replay_key(net, frame) if _graphable(frame) else None
+    if out is None:
+        KEY_GRAPH_COUNTS["eager"] += 1
+        out = _key_trunk(net, _chw(frame)[None])
+    key, shrinkage, selection, f16, f8, f4 = out
     return (_hwc(key[0]), _hwc(shrinkage[0]), _hwc(selection[0]),
             MultiScaleFeatures(_hwc(f16[0]), _hwc(f8[0]), _hwc(f4[0])))
+
+
+def _key_trunk(net: XMem, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(1, 3, H, W) -> NCHW (key, shrinkage, selection, f16, f8, f4)."""
+    f4, f8, f16 = net.key_encoder.features(x)
+    key, shrinkage, selection = net.key_proj(f16)
+    return key, shrinkage, selection, f16, f8, f4
 
 
 def compute_others(masks: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -170,3 +192,142 @@ def segment(
     prob = torch.sigmoid(logits)
     agg, agg_logits = soft_aggregate(prob, valid, dim=0, return_logits=True)
     return new_hidden, agg_logits, agg
+
+
+# --------------------------------------------------------- key-encoder graphs
+
+# Frame signatures whose key-encoder graph a net keeps; the least recently
+# used goes first (the app and the server see any frame size).
+KEY_GRAPH_LIMIT = 4
+# Eager runs on a new signature before its capture: they build the derived
+# parameters (`layers._derived`) and settle cuDNN's plans and workspace.
+KEY_GRAPH_WARMUP = 3
+# Calls of `encode_key` that replayed a graph, that captured one (and
+# replayed it), and that ran eagerly.
+KEY_GRAPH_COUNTS: Dict[str, int] = {"replay": 0, "capture": 0, "eager": 0}
+
+
+def reset_key_graph_counts() -> None:
+    for name in KEY_GRAPH_COUNTS:
+        KEY_GRAPH_COUNTS[name] = 0
+
+
+class _KeyGraph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    frame: torch.Tensor                 # the static input
+    out: Tuple[torch.Tensor, ...]       # the static outputs, as `_key_trunk`'s
+    derived: List[Tuple]                # the `_derived` entries the graph reads
+
+
+class _KeyGraphs(collections.OrderedDict):
+    """Signature -> `_KeyGraph`, all captured from the parameters that
+    `sources` lists at `versions`. A net that is copied or pickled starts
+    with none. A graph's static tensors serve one call at a time, so calls
+    on one net must not overlap (the server serves one request at a time)."""
+
+    sources: List[torch.Tensor] = []
+    versions: List[Tuple[int, int]] = []    # (_version, data_ptr()) of each
+
+    def __reduce__(self):
+        return type(self), ()
+
+    def lookup(self, sig: Tuple, sources: List[torch.Tensor],
+               capture: Callable[[], _KeyGraph]) -> _KeyGraph:
+        """The graph for `sig`, captured by `capture()` unless one is kept.
+        Every kept graph goes once a parameter or buffer is another tensor,
+        or has another `_version` or `data_ptr()` (`load_state_dict`,
+        `copy_`, `module.to`, a replaced parameter or submodule)."""
+        versions = [(t._version, t.data_ptr()) for t in sources]
+        if versions != self.versions or not all(map(operator.is_, sources, self.sources)):
+            self.clear()
+            self.sources, self.versions = sources, versions
+        entry = self.get(sig)
+        if entry is not None:
+            KEY_GRAPH_COUNTS["replay"] += 1
+            self.move_to_end(sig)
+            return entry
+        KEY_GRAPH_COUNTS["capture"] += 1
+        entry = self[sig] = capture()
+        while len(self) > KEY_GRAPH_LIMIT:
+            self.popitem(last=False)
+        return entry
+
+
+def _graphable(frame: torch.Tensor) -> bool:
+    """Whether `encode_key` may replay a graph for `frame`: on a CUDA device,
+    with grad disabled (the trainer), outside another capture."""
+    return frame.is_cuda and not torch.is_grad_enabled() and \
+        not torch.cuda.is_current_stream_capturing()
+
+
+def _key_modules(net: XMem) -> List[nn.Module]:
+    """The key encoder's and the key projection's modules, walked through
+    `_modules` (cheaper per call than `Module.modules()`)."""
+    mods = [net.key_proj, net.key_encoder]
+    for m in mods:                      # the list grows while it is walked
+        if m is not None:
+            mods += m._modules.values()
+    return [m for m in mods if m is not None]
+
+
+def _key_sources(net: XMem) -> Optional[List[torch.Tensor]]:
+    """Every parameter and buffer that the key encoder's graph reads, or None
+    where a forward hook is set on one of its modules or on every module (a
+    replay would not call it)."""
+    mods = _key_modules(net)
+    if _global_forward_hooks or _global_forward_pre_hooks or any(
+            m._forward_hooks or m._forward_pre_hooks for m in mods):
+        return None
+    out: List[Optional[torch.Tensor]] = []
+    for m in mods:
+        out += m._parameters.values()
+        out += m._buffers.values()
+    return [t for t in out if t is not None]
+
+
+def _key_signature(frame: torch.Tensor) -> Tuple:
+    """What a capture depends on besides the parameters: the frame's shape,
+    dtype (which is the derived weights' dtype, `layers._cast_params`),
+    strides and device, and the cuDNN flags that choose the convolutions
+    (`allow_tf32` for an fp32 frame)."""
+    c = torch.backends.cudnn
+    return (frame.shape, frame.dtype, frame.stride(), frame.device,
+            c.enabled, c.allow_tf32, c.deterministic, c.benchmark)
+
+
+def _capture_key(net: XMem, frame: torch.Tensor) -> _KeyGraph:
+    with torch.cuda.device(frame.device):
+        with torch.inference_mode(False):     # a static input later calls can write
+            static = torch.empty_strided(frame.shape, frame.stride(), dtype=frame.dtype,
+                                         device=frame.device)
+        static.copy_(frame)
+        x = _chw(static)[None]
+        # the warm-up runs on the caller's stream, so the derived parameters
+        # it builds belong to the stream that reads them, as eager calls' do
+        for _ in range(KEY_GRAPH_WARMUP):
+            _key_trunk(net, x)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(),
+                              capture_error_mode="thread_local"):
+            out = _key_trunk(net, x)
+    # the graph reads these tensors' addresses: keep them, even after a call
+    # in another dtype replaces a module's entry
+    derived = [m.__dict__["_derived_params"] for m in _key_modules(net)
+               if "_derived_params" in m.__dict__]
+    return _KeyGraph(graph, static, out, derived)
+
+
+def _replay_key(net: XMem, frame: torch.Tensor) -> Optional[Tuple[torch.Tensor, ...]]:
+    """`_key_trunk`'s outputs by the graph for `frame`, copied out so that no
+    later call writes them (callers keep them past the next frame); None
+    where a hook asks for the eager path."""
+    sources = _key_sources(net)
+    if sources is None:
+        return None
+    graphs = net.__dict__.get("_key_graphs")
+    if graphs is None:
+        graphs = net.__dict__["_key_graphs"] = _KeyGraphs()
+    entry = graphs.lookup(_key_signature(frame), sources, lambda: _capture_key(net, frame))
+    entry.frame.copy_(frame)
+    entry.graph.replay()
+    return tuple(t.clone() for t in entry.out)
