@@ -6,11 +6,13 @@ On the CPU, at 32x32 frames:
     expressions; the predicate that picks the graph refuses grad mode and a
     capture under way;
   - the signature tells apart shape, dtype, strides, device and each cuDNN
-    flag; the parameter check drops every kept graph after
-    `load_state_dict`, `copy_`, `module.to`, a replaced parameter or
-    submodule and a changed buffer, and keeps it otherwise; at most
-    `KEY_GRAPH_LIMIT` graphs are kept, the least recently used going first;
-    a copied or pickled net keeps none; a forward hook keeps the eager path.
+    flag; at most `KEY_GRAPH_LIMIT` graphs are kept, the least recently used
+    going first; a copied or pickled net keeps none; a forward hook keeps
+    the eager path.
+
+When a parameter change drops the graphs is the layer library's one rule
+(`layers.stamp_holds`); `tests/test_torch_param_cache.py` runs its table of
+changes against the graphs and against the layers' own cache.
 
 On the card (marker `cuda`; `python -m pytest tests/test_torch_key_graph.py
 -m cuda --noconftest`, since the suite's conftest imports JAX), at 480x854
@@ -127,55 +129,6 @@ def test_the_signature_tells_apart(change):
             "device": torch.zeros(32, 32, 3, device="meta"),
         }[change])
     assert other != sig
-
-
-def _replace_parameter(m):
-    m.key_encoder.conv1.weight = torch.nn.Parameter(m.key_encoder.conv1.weight.detach().clone())
-
-
-def _replace_submodule(m):
-    m.key_proj.d_proj = copy.deepcopy(m.key_proj.d_proj)
-
-
-MUTATIONS = {
-    "nothing": (lambda m: None, False),
-    "to_same": (lambda m: m.to(torch.float32), False),
-    "load_state_dict": (lambda m: m.load_state_dict(m.state_dict()), True),
-    "copy_": (lambda m: m.key_proj.key_proj.bias.copy_(
-        torch.zeros_like(m.key_proj.key_proj.bias)), True),
-    "to": (lambda m: m.key_encoder.layer3.to(torch.float64), True),
-    "replaced_parameter": (_replace_parameter, True),
-    "replaced_submodule": (_replace_submodule, True),
-    "buffer": (lambda m: m.key_encoder.bn1.running_var.add_(1.0), True),
-}
-
-
-class _KeyParts(torch.nn.Module):
-    """A copy of a net's key encoder and key projection."""
-
-    def __init__(self, net):
-        super().__init__()
-        self.key_encoder = copy.deepcopy(net.key_encoder)
-        self.key_proj = copy.deepcopy(net.key_proj)
-
-
-@pytest.mark.parametrize("kind", list(MUTATIONS))
-def test_a_parameter_change_drops_every_graph(net, counts, kind):
-    model = _KeyParts(net)
-    graphs, made = xn._KeyGraphs(), []
-    capture = lambda: made.append(object()) or made[-1]   # noqa: E731
-    first = graphs.lookup(("a",), xn._key_sources(model), capture)
-    graphs.lookup(("b",), xn._key_sources(model), capture)
-    mutate, drops = MUTATIONS[kind]
-    with torch.no_grad():
-        mutate(model)
-    again = graphs.lookup(("a",), xn._key_sources(model), capture)
-    if drops:
-        assert again is not first and list(graphs) == [("a",)]
-        assert counts == {"replay": 0, "capture": 3, "eager": 0}
-    else:
-        assert again is first and list(graphs) == [("b",), ("a",)]
-        assert counts == {"replay": 1, "capture": 2, "eager": 0}
 
 
 def test_graphs_are_bounded_least_recently_used_first(net, counts):

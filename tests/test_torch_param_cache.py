@@ -1,26 +1,33 @@
-"""The layer library's derived-parameter cache (`models/layers._derived`).
+"""The port's one staleness rule for what it derives from parameters
+(`models/layers.param_stamp`, `stamp_holds`) and its two consumers: the
+layers' cache (`layers._derived`) and XMem's key-encoder CUDA graphs
+(`models/xmem/network._KeyGraphs`).
 
 XMem keeps fp32 parameters and runs bf16 activations, so every convolution
 casts its weight and every BN builds its scale and shift from the running
 statistics. Under `torch.no_grad` those tensors are built once and kept on
-the module. Held here: outputs bit-equal to the call-time expressions
-(copied below as they stood before the cache), a rebuild after every kind
-of parameter change, no caching with grad enabled, only hits once warm, and
-the op count of a warmed `core.step`.
+the module, one entry per activation dtype and device. Held here: outputs
+bit-equal to the call-time expressions (copied below as they stood before
+the cache), one table of parameter changes run against both consumers (each
+change rebuilds both or keeps both), a second dtype kept beside the first,
+no caching with grad enabled, only hits once warm, and the op count of a
+warmed `core.step`. The three XMem rollouts are made once per module.
 """
 
+import copy
 import dataclasses
+import types
 
 import numpy as np
 import pytest
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import ProfilerActivity, profile
 
 from vosesam_tpu_torch import config as C
 from vosesam_tpu_torch.inference import core
 from vosesam_tpu_torch.models import layers
+from vosesam_tpu_torch.models.xmem import network as xn
 from vosesam_tpu_torch.models.xmem.network import XMem
 
 H, W = 48, 64
@@ -65,21 +72,25 @@ def _calltime_batch_norm(x, bn):
     return x * scale[:, None, None] + shift[:, None, None]
 
 
+def _use_calltime(mp: pytest.MonkeyPatch) -> None:
+    mp.setattr(layers, "conv2d", _calltime_conv2d)
+    mp.setattr(layers, "linear", _calltime_linear)
+    mp.setattr(layers, "batch_norm", _calltime_batch_norm)
+
+
 @pytest.fixture
 def calltime(monkeypatch):
     """Route the layer classes through the call-time expressions."""
-    def use():
-        monkeypatch.setattr(layers, "conv2d", _calltime_conv2d)
-        monkeypatch.setattr(layers, "linear", _calltime_linear)
-        monkeypatch.setattr(layers, "batch_norm", _calltime_batch_norm)
-    return use
+    return lambda: _use_calltime(monkeypatch)
 
 
 @pytest.fixture(autouse=True)
 def _counts():
     layers.reset_param_cache_counts()
+    xn.reset_key_graph_counts()
     yield
     layers.reset_param_cache_counts()
+    xn.reset_key_graph_counts()
 
 
 # ------------------------------------------------------------ fixtures
@@ -134,23 +145,41 @@ def _rollout(net, cfg, video, steps=STEPS):
     return state, out
 
 
+@pytest.fixture(scope="module")
+def rollouts():
+    """One net rolled out twice (`first` fills the cache, `warm` reads it),
+    and a copy made before either rolled out through the call-time
+    expressions (`ref`). Each net is kept with its state for one more step,
+    with the counts read after each rollout."""
+    cfg, video = _cfg(), _video()
+    layers.reset_param_cache_counts()
+    net = _net()
+    ref_net = copy.deepcopy(net)
+    _, first = _rollout(net, cfg, video)
+    first_counts = dict(layers.PARAM_CACHE_COUNTS)
+    state, warm = _rollout(net, cfg, video)
+    warm_counts = dict(layers.PARAM_CACHE_COUNTS)
+    with pytest.MonkeyPatch.context() as mp:
+        _use_calltime(mp)
+        layers.reset_param_cache_counts()
+        ref_state, ref = _rollout(ref_net, cfg, video)
+        ref_counts = dict(layers.PARAM_CACHE_COUNTS)
+    return types.SimpleNamespace(
+        cfg=cfg, video=video, net=net, state=state, first=first, warm=warm,
+        first_counts=first_counts, warm_counts=warm_counts, ref_net=ref_net,
+        ref_state=ref_state, ref=ref, ref_counts=ref_counts)
+
+
 # ------------------------------------------------------------ (a) bits
 
 
-def test_rollout_bit_equal_to_calltime_expressions(calltime):
-    cfg, video = _cfg(), _video()
-    net = _net()
-    _, first = _rollout(net, cfg, video)            # fills the cache
-    assert layers.PARAM_CACHE_COUNTS["miss"] > 0
-    _, warm = _rollout(net, cfg, video)             # reads it
-    assert layers.PARAM_CACHE_COUNTS["hit"] > 0
+def test_rollout_bit_equal_to_calltime_expressions(rollouts):
+    r = rollouts
+    assert r.first_counts["miss"] > 0                 # the first rollout fills the cache
+    assert r.warm_counts["hit"] > 0                   # the second reads it
+    assert r.ref_counts == {"hit": 0, "miss": 0, "bypass": 0}
 
-    calltime()
-    layers.reset_param_cache_counts()
-    _, ref = _rollout(_net(), cfg, video)
-    assert layers.PARAM_CACHE_COUNTS == {"hit": 0, "miss": 0, "bypass": 0}
-
-    for (p1, l1), (p2, l2), (pr, lr) in zip(first, warm, ref):
+    for (p1, l1), (p2, l2), (pr, lr) in zip(r.first, r.warm, r.ref):
         assert torch.equal(p1, pr) and torch.equal(l1, lr)
         assert torch.equal(p2, pr) and torch.equal(l2, lr)
 
@@ -191,19 +220,30 @@ def test_each_helper_bit_equal_and_kept(name, param_dtype):
     assert torch.equal(first, want) and torch.equal(again, want)
 
 
-# ------------------------------------------------------- (b) staleness
+# ---------------------------------------------------- (b) the one rule
 
 
-class _Block(nn.Module):
+class _Trunk(nn.Module):
     def __init__(self) -> None:
         super().__init__()
         self.conv = layers.Conv2d(4, 6, 3, padding=1)
         self.bn = layers.BatchNorm2d(6)
-        self.fc = layers.Linear(6, 3)
+
+
+class _Block(nn.Module):
+    """conv -> BN -> relu -> mean -> linear, under the names of XMem's key
+    path (`key_encoder`, `key_proj`), whose tensors the key-encoder graphs
+    stamp (`network._key_sources`)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.key_encoder = _Trunk()
+        self.key_proj = layers.Linear(6, 3)
 
     def forward(self, x):
-        y = torch.relu(self.bn(self.conv(x)))
-        return self.fc(y.mean(dim=(-2, -1)))
+        e = self.key_encoder
+        y = torch.relu(e.bn(e.conv(x)))
+        return self.key_proj(y.mean(dim=(-2, -1)))
 
 
 def _block() -> _Block:
@@ -217,18 +257,6 @@ def _x(dtype=torch.bfloat16):
     return torch.randn(2, 4, 5, 7, generator=torch.Generator().manual_seed(5)).to(dtype)
 
 
-def _copy_conv_weight(b):
-    b.conv.weight.copy_(b.conv.weight * 1.5)
-
-
-def _copy_running_var(b):
-    b.bn.running_var.copy_(b.bn.running_var * 3.0)
-
-
-def _copy_bn_weight(b):
-    b.bn.weight.copy_(-b.bn.weight)
-
-
 def _load_state_dict(b):
     torch.manual_seed(6)
     other = _Block()
@@ -237,61 +265,89 @@ def _load_state_dict(b):
 
 
 def _data_reassign(b):
-    b.conv.weight.data = b.conv.weight.data * 0.5
+    w = b.key_encoder.conv.weight
+    w.data = w.data * 0.5
 
 
 def _replace_parameter(b):
-    b.bn.bias = nn.Parameter(b.bn.bias + 0.25)
+    bn = b.key_encoder.bn
+    bn.bias = nn.Parameter(bn.bias + 0.25)
 
 
 def _rewrap_parameter(b):
     """A new Parameter over the same storage, updated in place until its
     version counter reads what the old one's did: only identity tells."""
-    old = b.bn.bias
+    bn = b.key_encoder.bn
+    old = bn.bias
     new = nn.Parameter(old.data)
-    b.bn.bias = new
+    bn.bias = new
     new.add_(0.25)
     while new._version < old._version:
         new.add_(0.0)
 
 
-def _module_to(b):
-    b.to(torch.float64)
+def _replace_submodule(b):
+    b.key_encoder.bn = copy.deepcopy(b.key_encoder.bn)
 
 
+# name -> (change, rebuilds, changes the output); float64 copies of float32
+# values and a deep copy cast alike, so those two change no output
 MUTATIONS = {
-    "copy_conv_weight": _copy_conv_weight,
-    "copy_bn_running_var": _copy_running_var,
-    "copy_bn_weight": _copy_bn_weight,
-    "load_state_dict": _load_state_dict,
-    "data_reassignment": _data_reassign,
-    "replace_parameter": _replace_parameter,
-    "rewrap_parameter": _rewrap_parameter,
-    "module_to": _module_to,
+    "nothing": (lambda b: None, False, False),
+    "to_same_dtype": (lambda b: b.to(torch.float32), False, False),
+    "load_state_dict": (_load_state_dict, True, True),
+    "copy_conv_weight": (lambda b: b.key_encoder.conv.weight.mul_(1.5), True, True),
+    "copy_conv_bias": (lambda b: b.key_encoder.conv.bias.add_(0.5), True, True),
+    "copy_bn_weight": (lambda b: b.key_encoder.bn.weight.neg_(), True, True),
+    "copy_bn_running_var": (lambda b: b.key_encoder.bn.running_var.mul_(3.0), True, True),
+    "data_reassignment": (_data_reassign, True, True),
+    "rewrap_parameter": (_rewrap_parameter, True, True),
+    "replace_parameter": (_replace_parameter, True, True),
+    "replace_submodule": (_replace_submodule, True, False),
+    "module_to": (lambda b: b.to(torch.float64), True, False),
 }
 
 
-@pytest.mark.parametrize("name", sorted(MUTATIONS))
-def test_change_of_parameters_rebuilds(name, calltime):
-    b, x = _block(), _x()
+@pytest.mark.parametrize("consumer", ["derived", "key_graphs"])
+@pytest.mark.parametrize("name", list(MUTATIONS))
+def test_change_of_parameters_rebuilds(name, consumer, calltime):
+    """Each change against each consumer of the rule: the layers' entries
+    rebuild (to the call-time outputs) or stay; the graphs all go or stay."""
+    mutate, rebuilds, changes_output = MUTATIONS[name]
+    b = _block()
+    if consumer == "derived":
+        x = _x()
+        with torch.no_grad():
+            before = b(x)
+            b(x)
+            assert layers.PARAM_CACHE_COUNTS == {"hit": 3, "miss": 3, "bypass": 0}
+            mutate(b)
+            layers.reset_param_cache_counts()
+            after = b(x)
+        assert (layers.PARAM_CACHE_COUNTS["miss"] >= 1) is rebuilds
+        assert torch.equal(after, before) is not changes_output
+        calltime()
+        with torch.no_grad():
+            assert torch.equal(after, b(x))
+        return
+    graphs, made = xn._KeyGraphs(), []
+    capture = lambda: made.append(object()) or made[-1]   # noqa: E731
+    first = graphs.lookup(("a",), xn._key_sources(b), capture)
+    graphs.lookup(("b",), xn._key_sources(b), capture)
     with torch.no_grad():
-        before = b(x)
-        b(x)
-        assert layers.PARAM_CACHE_COUNTS["miss"] == 3
-        assert layers.PARAM_CACHE_COUNTS["hit"] == 3
-        MUTATIONS[name](b)
-        layers.reset_param_cache_counts()
-        after = b(x)
-    assert layers.PARAM_CACHE_COUNTS["miss"] >= 1
-    if name != "module_to":          # float64 copies of float32 values cast alike
-        assert not torch.equal(after, before)
-
-    calltime()
-    with torch.no_grad():
-        assert torch.equal(after, b(x))
+        mutate(b)
+    again = graphs.lookup(("a",), xn._key_sources(b), capture)
+    if rebuilds:
+        assert again is not first and list(graphs) == [("a",)]
+        assert xn.KEY_GRAPH_COUNTS == {"replay": 0, "capture": 3, "eager": 0}
+    else:
+        assert again is first and list(graphs) == [("b",), ("a",)]
+        assert xn.KEY_GRAPH_COUNTS == {"replay": 1, "capture": 2, "eager": 0}
 
 
 def test_second_dtype_rebuilds(calltime):
+    """A second dtype builds its own entries and the first dtype's stay; a
+    parameter change then drops the entries it makes stale."""
     b = _block()
     with torch.no_grad():
         b(_x(torch.bfloat16))
@@ -299,6 +355,13 @@ def test_second_dtype_rebuilds(calltime):
         out32 = b(_x(torch.float32))
         assert layers.PARAM_CACHE_COUNTS == {"hit": 0, "miss": 3, "bypass": 0}
         assert out32.dtype == torch.float32
+        b(_x(torch.bfloat16))
+        assert layers.PARAM_CACHE_COUNTS == {"hit": 3, "miss": 3, "bypass": 0}
+        b.key_proj.weight.mul_(2.0)
+        out32 = b(_x(torch.float32))
+        assert list(b.key_proj.__dict__["_derived_params"]) == [(torch.float32,
+                                                                 torch.device("cpu"))]
+        assert len(b.key_encoder.conv.__dict__["_derived_params"]) == 2
         calltime()
         assert torch.equal(out32, b(_x(torch.float32)))
 
@@ -308,20 +371,22 @@ def test_second_dtype_rebuilds(calltime):
 
 def test_grad_mode_bypasses_the_cache(calltime):
     b, x = _block(), _x()
+    mods = (b.key_encoder.conv, b.key_encoder.bn, b.key_proj)
     with torch.no_grad():
         b(x)                                          # an entry for each layer
-        for mod in (b.conv, b.bn, b.fc):              # poison it: a read would show
-            for t in mod.__dict__["_derived_params"][3]:
-                if t is not None:
-                    t.zero_()
-    entries = [m.__dict__["_derived_params"] for m in (b.conv, b.bn, b.fc)]
+        for mod in mods:                              # poison it: a read would show
+            for _, out in mod.__dict__["_derived_params"].values():
+                for t in out:
+                    if t is not None:
+                        t.zero_()
+    entries = [m.__dict__["_derived_params"] for m in mods]
     ref = _block()                                    # same parameters, no entries
     layers.reset_param_cache_counts()
 
     out = b(x)
     out.float().square().sum().backward()
     assert layers.PARAM_CACHE_COUNTS == {"hit": 0, "miss": 0, "bypass": 3}
-    assert all(m.__dict__["_derived_params"] is e for m, e in zip((b.conv, b.bn, b.fc), entries))
+    assert all(m.__dict__["_derived_params"] is e for m, e in zip(mods, entries))
     fresh = _block()
     fresh(x)
     assert not any("_derived_params" in m.__dict__ for m in fresh.modules())
@@ -330,8 +395,9 @@ def test_grad_mode_bypasses_the_cache(calltime):
     out_ref = ref(x)
     out_ref.float().square().sum().backward()
     assert torch.equal(out, out_ref)
-    for got, want in ((b.conv.weight, ref.conv.weight), (b.bn.weight, ref.bn.weight),
-                      (b.bn.bias, ref.bn.bias)):
+    for got, want in ((b.key_encoder.conv.weight, ref.key_encoder.conv.weight),
+                      (b.key_encoder.bn.weight, ref.key_encoder.bn.weight),
+                      (b.key_encoder.bn.bias, ref.key_encoder.bn.bias)):
         assert got.grad is not None
         assert torch.equal(got.grad, want.grad)
 
@@ -339,12 +405,10 @@ def test_grad_mode_bypasses_the_cache(calltime):
 # ----------------------------------------------------------- (d) engagement
 
 
-def test_warmed_step_is_all_hits():
-    cfg, video = _cfg(), _video()
-    net = _net()
-    state, _ = _rollout(net, cfg, video)              # warm-up: every module has run
+def test_warmed_step_is_all_hits(rollouts):
+    r = rollouts
     layers.reset_param_cache_counts()
-    core.step(net, state, video[0][1], cfg)
+    core.step(r.net, copy.deepcopy(r.state), r.video[0][1], r.cfg)
     counts = layers.PARAM_CACHE_COUNTS
     assert counts["miss"] == 0 and counts["bypass"] == 0
     assert counts["hit"] > 0
@@ -370,11 +434,13 @@ _NO_WORK = {
 
 def _compute_ops(fn):
     """Names of the leaf aten ops that `fn` runs, views and allocations
-    left out (each is one kernel launch on the card)."""
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    left out (each is one kernel launch on the card). The autograd
+    profiler's own event tree, without Kineto, whose first start costs
+    seconds on the CPU; the events are the same."""
+    with torch.autograd.profiler.profile(use_kineto=False) as prof:
         fn()
     names = []
-    for ev in prof.events():
+    for ev in prof.function_events:
         if not ev.name.startswith("aten::") or ev.name in _NO_WORK:
             continue
         if any(c.name.startswith("aten::") and c.name not in _NO_WORK
@@ -384,17 +450,13 @@ def _compute_ops(fn):
     return names
 
 
-def test_warmed_step_issues_fewer_ops(calltime):
-    cfg, video = _cfg(), _video()
-
-    def step_ops():
-        net = _net()
-        state, _ = _rollout(net, cfg, video, steps=2)
-        return _compute_ops(lambda: core.step(net, state, video[0][3], cfg))
-
-    cached = step_ops()
+def test_warmed_step_issues_fewer_ops(rollouts, calltime):
+    r = rollouts
+    frame = r.video[0][3]
+    cached = _compute_ops(lambda: core.step(r.net, copy.deepcopy(r.state), frame, r.cfg))
     calltime()
-    today = step_ops()
+    today = _compute_ops(lambda: core.step(r.ref_net, copy.deepcopy(r.ref_state), frame,
+                                           r.cfg))
     assert "aten::rsqrt" in today
     assert "aten::rsqrt" not in cached
     assert len(cached) <= 0.55 * len(today), (len(cached), len(today))

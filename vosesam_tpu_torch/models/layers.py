@@ -6,12 +6,11 @@ PyTorch checkpoint names (`weight`, `bias`, `running_mean`, ...), kept in
 fp32 master weights. What a layer derives from its parameters alone (the
 weight and bias in the activation dtype, BN's scale and shift, LayerNorm's
 fp32 affine) is computed by the same expressions on first use and kept on the
-module (`_derived`), keyed by the activation dtype and device and valid while
-every source tensor is the same object at the same `_version` and
-`data_ptr()` (so `copy_`, `load_state_dict`, an optimizer step, `.data`
-reassignment, `module.to` and a replaced parameter all rebuild it). With grad
-enabled nothing is kept or read: training sees the call-time graph.
-`PARAM_CACHE_COUNTS` counts hits, misses (builds) and those bypasses.
+module (`_derived`), one entry per activation dtype and device, while
+`stamp_holds`: the port's one rule for what is derived from parameters (XMem's
+key-encoder graphs use it too). With grad enabled nothing is kept or read:
+training sees the call-time graph. `PARAM_CACHE_COUNTS` counts hits, misses
+(builds) and those bypasses.
 
 Inside the models activations are NCHW, PyTorch's layout; the models' public
 functions take and return the JAX package's channel-last layout.
@@ -23,7 +22,7 @@ functions take and return the JAX package's channel-last layout.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,27 +62,41 @@ def reset_param_cache_counts() -> None:
         PARAM_CACHE_COUNTS[name] = 0
 
 
+def _meta(tensors: Sequence[torch.Tensor]) -> List[Tuple]:
+    return [(id(t), t._version, t.data_ptr(), t.dtype, t.shape, t.stride()) for t in tensors]
+
+
+def param_stamp(tensors: Sequence[torch.Tensor]) -> Tuple:
+    """A stamp of `tensors` for `stamp_holds`. While it lives it keeps each
+    tensor, so no other object takes its id, and a detached alias of each,
+    so no other tensor takes its address."""
+    return tuple(tensors), tuple(t.detach() for t in tensors), _meta(tensors)
+
+
+def stamp_holds(stamp: Tuple, tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether `tensors` are the objects `stamp` recorded, each at the same
+    `_version`, `data_ptr()`, dtype, shape and strides: `copy_`, `.data =`,
+    `module.to` and a replaced or re-wrapped parameter or module all fail it."""
+    return _meta(tensors) == stamp[2]
+
+
 def _derived(module: nn.Module, key: Tuple, sources: Tuple[torch.Tensor, ...],
              build: Callable[[], Tuple]) -> Tuple:
-    """`build()`, kept on `module` for `key` while each of `sources` is the
-    same tensor with the same `_version`, `data_ptr()`, dtype, shape and
-    strides; a miss rebuilds and replaces the entry. The entry holds a
-    detached alias of each source, so a replaced storage stays allocated and
-    no new one can reuse its address while the entry lives."""
+    """`build()`, kept on `module` under `key` while `sources` hold its stamp.
+    Each key keeps its own entry; a miss drops those that `sources` fail."""
     if torch.is_grad_enabled():
         PARAM_CACHE_COUNTS["bypass"] += 1
         return build()
-    stamp = (key, *[(t._version, t.data_ptr(), t.dtype, t.shape, t.stride())
-                    for t in sources])
-    entry = module.__dict__.get("_derived_params")
-    if entry is not None and entry[0] == stamp and all(
-            a is b for a, b in zip(entry[1], sources)):
+    entries = module.__dict__.get("_derived_params", {})
+    entry = entries.get(key)
+    if entry is not None and stamp_holds(entry[0], sources):
         PARAM_CACHE_COUNTS["hit"] += 1
-        return entry[3]
+        return entry[1]
     PARAM_CACHE_COUNTS["miss"] += 1
     out = build()
-    module.__dict__["_derived_params"] = (stamp, sources,
-                                          tuple(t.detach() for t in sources), out)
+    entries = {k: e for k, e in entries.items() if stamp_holds(e[0], sources)}
+    entries[key] = (param_stamp(sources), out)
+    module.__dict__["_derived_params"] = entries
     return out
 
 

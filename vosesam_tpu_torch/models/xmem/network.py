@@ -12,13 +12,13 @@ signatures and channel-last layouts:
 Internally the convolutions run NCHW (the channel-last tensors are permuted
 views, so no copy is made when the memory format is channels_last).
 `encode_key` replays one CUDA graph of the key encoder per frame signature
-on the card (`KEY_GRAPH_COUNTS` counts replays, captures and eager calls).
+on the card until the parameters fail `layers.stamp_holds` (`KEY_GRAPH_COUNTS`
+counts replays, captures and eager calls).
 """
 
 from __future__ import annotations
 
 import collections
-import operator
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -27,7 +27,8 @@ import torch.nn as nn
 from torch.nn.modules.module import _global_forward_hooks, _global_forward_pre_hooks
 
 from vosesam_tpu_torch.config import XMemConfig
-from vosesam_tpu_torch.models.layers import Conv2d, init_like_jax, interpolate_bilinear
+from vosesam_tpu_torch.models.layers import (Conv2d, init_like_jax, interpolate_bilinear,
+                                             param_stamp, stamp_holds)
 from vosesam_tpu_torch.models.resnet import ResNetTrunk
 from vosesam_tpu_torch.models.xmem import modules as M
 from vosesam_tpu_torch.ops.aggregate import soft_aggregate
@@ -212,35 +213,25 @@ def reset_key_graph_counts() -> None:
         KEY_GRAPH_COUNTS[name] = 0
 
 
-class _KeyGraph(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
-    frame: torch.Tensor                 # the static input
-    out: Tuple[torch.Tensor, ...]       # the static outputs, as `_key_trunk`'s
-    derived: List[Tuple]                # the `_derived` entries the graph reads
-
-
 class _KeyGraphs(collections.OrderedDict):
-    """Signature -> `_KeyGraph`, all captured from the parameters that
-    `sources` lists at `versions`. A net that is copied or pickled starts
-    with none. A graph's static tensors serve one call at a time, so calls
-    on one net must not overlap (the server serves one request at a time)."""
+    """Signature -> (graph, static input, static outputs as `_key_trunk`'s),
+    all captured from the parameters and buffers that `stamp` recorded. A
+    net that is copied or pickled starts with none. A graph's static
+    tensors serve one call at a time, so calls on one net must not overlap
+    (the server serves one request at a time)."""
 
-    sources: List[torch.Tensor] = []
-    versions: List[Tuple[int, int]] = []    # (_version, data_ptr()) of each
+    stamp = param_stamp(())
 
     def __reduce__(self):
         return type(self), ()
 
     def lookup(self, sig: Tuple, sources: List[torch.Tensor],
-               capture: Callable[[], _KeyGraph]) -> _KeyGraph:
+               capture: Callable[[], Tuple]) -> Tuple:
         """The graph for `sig`, captured by `capture()` unless one is kept.
-        Every kept graph goes once a parameter or buffer is another tensor,
-        or has another `_version` or `data_ptr()` (`load_state_dict`,
-        `copy_`, `module.to`, a replaced parameter or submodule)."""
-        versions = [(t._version, t.data_ptr()) for t in sources]
-        if versions != self.versions or not all(map(operator.is_, sources, self.sources)):
+        Every kept graph goes once `sources` fail the stamp."""
+        if not stamp_holds(self.stamp, sources):
             self.clear()
-            self.sources, self.versions = sources, versions
+            self.stamp = param_stamp(sources)
         entry = self.get(sig)
         if entry is not None:
             KEY_GRAPH_COUNTS["replay"] += 1
@@ -260,21 +251,15 @@ def _graphable(frame: torch.Tensor) -> bool:
         not torch.cuda.is_current_stream_capturing()
 
 
-def _key_modules(net: XMem) -> List[nn.Module]:
-    """The key encoder's and the key projection's modules, walked through
-    `_modules` (cheaper per call than `Module.modules()`)."""
-    mods = [net.key_proj, net.key_encoder]
-    for m in mods:                      # the list grows while it is walked
-        if m is not None:
-            mods += m._modules.values()
-    return [m for m in mods if m is not None]
-
-
 def _key_sources(net: XMem) -> Optional[List[torch.Tensor]]:
     """Every parameter and buffer that the key encoder's graph reads, or None
     where a forward hook is set on one of its modules or on every module (a
     replay would not call it)."""
-    mods = _key_modules(net)
+    mods = [net.key_proj, net.key_encoder]
+    for m in mods:          # grows while walked; cheaper than `Module.modules()`
+        if m is not None:
+            mods += m._modules.values()
+    mods = [m for m in mods if m is not None]
     if _global_forward_hooks or _global_forward_pre_hooks or any(
             m._forward_hooks or m._forward_pre_hooks for m in mods):
         return None
@@ -295,7 +280,9 @@ def _key_signature(frame: torch.Tensor) -> Tuple:
             c.enabled, c.allow_tf32, c.deterministic, c.benchmark)
 
 
-def _capture_key(net: XMem, frame: torch.Tensor) -> _KeyGraph:
+def _capture_key(net: XMem, frame: torch.Tensor) -> Tuple:
+    """A graph of `_key_trunk` on a static copy of `frame`. It reads the
+    weights `layers._derived` keeps while the graphs' stamp holds."""
     with torch.cuda.device(frame.device):
         with torch.inference_mode(False):     # a static input later calls can write
             static = torch.empty_strided(frame.shape, frame.stride(), dtype=frame.dtype,
@@ -310,11 +297,7 @@ def _capture_key(net: XMem, frame: torch.Tensor) -> _KeyGraph:
         with torch.cuda.graph(graph, stream=torch.cuda.Stream(),
                               capture_error_mode="thread_local"):
             out = _key_trunk(net, x)
-    # the graph reads these tensors' addresses: keep them, even after a call
-    # in another dtype replaces a module's entry
-    derived = [m.__dict__["_derived_params"] for m in _key_modules(net)
-               if "_derived_params" in m.__dict__]
-    return _KeyGraph(graph, static, out, derived)
+    return graph, static, out
 
 
 def _replay_key(net: XMem, frame: torch.Tensor) -> Optional[Tuple[torch.Tensor, ...]]:
@@ -327,7 +310,8 @@ def _replay_key(net: XMem, frame: torch.Tensor) -> Optional[Tuple[torch.Tensor, 
     graphs = net.__dict__.get("_key_graphs")
     if graphs is None:
         graphs = net.__dict__["_key_graphs"] = _KeyGraphs()
-    entry = graphs.lookup(_key_signature(frame), sources, lambda: _capture_key(net, frame))
-    entry.frame.copy_(frame)
-    entry.graph.replay()
-    return tuple(t.clone() for t in entry.out)
+    graph, static, out = graphs.lookup(_key_signature(frame), sources,
+                                       lambda: _capture_key(net, frame))
+    static.copy_(frame)
+    graph.replay()
+    return tuple(t.clone() for t in out)
