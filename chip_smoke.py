@@ -65,6 +65,18 @@ Phases (each one that fails exits non-zero):
   2f. each forward-only kernel entry point (B1, B2, B3, B4, B5, B7) raises
      under grad mode for an input that requires grad, B6 returns a result
      with a grad_fn, and all run under no_grad;
+  2h. kernel vs plain for the LayerNorm (`ops/kernels/layer_norm.py`,
+     no TPU kernel): the SAM encoder's 8 x 64 x 64 x 1280 bf16 without and
+     with the strided `window_unpartition` residual, the HQ decoder's 256
+     wide tokens, E2FGVI's focal blocks (16 x 40 x 72 x 512 fp32, eps 1e-5),
+     vit_h's 1280 in fp32, the prompt encoder's 4-wide LayerNorm2d: the sum
+     bit-equal, normed within 1e-6 of the row's largest value past one
+     bf16 ulp, or no more than twice as far from fp64 as the chain is;
+     inputs without an instance raise; device times of the
+     kernel, of the plain chain and of `F.layer_norm` (after the plain add
+     with a residual; its weight and bias in the input's dtype, as it
+     takes them on the card) beside the byte bound; each instance's
+     registers and blocks per SM;
   3. XMem end to end: `TrackingAnything` (XMem-s012 widths, default
      MemoryConfig, bf16, no refinement) tracks a 64-frame 480x854 clip with
      two objects seeded on frame 0 and a third added on frame 40;
@@ -195,7 +207,9 @@ Kernel launch counts are set to 0 right before each main-path run (phases
 3, 5, 7, 8, 9, 10, each step of 12, 13's runs, 14 and 15's runs; the
 checkpoint-day processes record their own) and read right after;
 the `kernels` line sums them (B7, a probe on no product path, counts its
-own run in phase 2e; B6's backward counts phase 12's steps).
+own run in phase 2e; B6's backward counts phase 12's steps; the LayerNorm
+counts phase 5's runs, each of whose encodes must launch it at least 64
+times, with no plain LayerNorm call).
 The last two lines are the `kernels` JSON line and the result line
 `{"ok": true, "device": {...}}`. Imports nothing of JAX.
 """
@@ -1487,6 +1501,161 @@ def phase_deform_backward(torch):
     return kernel, cases
 
 
+# -------------------------------------------------------------- LayerNorm
+
+def _ln_gap(torch, got, want):
+    """The kernel's distance from the chain past one bf16 ulp (bf16; none
+    in fp32), over the row's largest value. The two sum the statistics in
+    another order, which moves the fp32 value by ~1e-7 of the row: more than
+    a bf16 ulp where the bias brings an output near zero."""
+    g, w = got.float(), want.float()
+    slack = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        ulp = torch.ldexp(torch.ones_like(g), torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8)
+        slack = (slack - ulp).clamp(min=0)
+    return float((slack / w.abs().amax(dim=-1, keepdim=True)).max())
+
+
+def _ln_err64(torch, got, x, w, b, eps, res):
+    """The largest distance of `got` from LayerNorm computed in fp64 (of the
+    rounded sum), over the row's largest value."""
+    s = (x if res is None else x + res).double()
+    mu = s.mean(dim=-1, keepdim=True)
+    ref = (s - mu) * torch.rsqrt((s - mu).square().mean(dim=-1, keepdim=True) + eps)
+    ref = ref * w.double() + b.double()
+    return float(((got.double() - ref).abs() / ref.abs().amax(dim=-1, keepdim=True)).max())
+
+
+def _ln_bound(rows, c, itemsize, residual):
+    """x (and the residual) read once, normed (and the sum) written once,
+    the fp32 weight and bias once."""
+    bytes_moved = (4 if residual else 2) * rows * c * itemsize + 8 * c
+    return bytes_moved / HBM_BYTES_PER_S * 1e3
+
+
+def phase_layer_norm_kernel(torch):
+    """The LayerNorm kernel against the plain chain at the shapes the main
+    path and the inpainter run, and its device time beside the plain
+    chain's, the library's and the byte bound."""
+    import torch.nn.functional as F
+
+    from vosesam_tpu_torch.models.sam import image_encoder as enc
+    from vosesam_tpu_torch.ops.kernels import layer_norm as lnk
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(shape, dtype):
+        return (3.0 + 2.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    def affine(c):
+        return (0.5 + torch.rand(c, generator=gen, device="cuda"),
+                torch.rand(c, generator=gen, device="cuda") - 0.5)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    parts, pad_hw = enc.window_partition(rnd((8, 64, 64, 1280), bf), 14)
+    unpartitioned = enc.window_unpartition(parts, 14, pad_hw, (64, 64))
+    check(not unpartitioned.is_contiguous(), "LN: the unpartitioned residual is contiguous")
+    cases = {
+        "encoder_norm1": (rnd((8, 64, 64, 1280), bf), None, 1e-6),
+        "encoder_norm2_residual": (rnd((8, 64, 64, 1280), bf), unpartitioned, 1e-6),
+        "encoder_b1_norm2_residual": (rnd((1, 64, 64, 1280), bf), unpartitioned[:1], 1e-6),
+        "encoder_fp32_norm2_residual": (rnd((2, 64, 64, 1280), f32),
+                                        rnd((2, 70, 70, 1280), f32)[:, :64, :64], 1e-6),
+        "decoder_keys": (rnd((1, 4096, 256), bf), None, 1e-6),
+        "focal_norm1": (rnd((1, 16, 40, 72, 512), f32), None, 1e-5),
+        "mask_ln2d_4": (rnd((2, 128, 128, 4), f32), None, 1e-6),
+    }
+    results = {}
+    lnk.reset_counts()
+    with torch.no_grad():
+        for name, (x, res, eps) in cases.items():
+            w, b = affine(x.shape[-1])
+            plan = lnk.layout(x, w, b, res)
+            check(plan is not None, f"LN {name}: the kernel has no instance for it")
+            y, s = lnk.layer_norm_fused(x, w, b, eps, res)
+            py, ps = lnk.layer_norm_plain(x, w, b, eps, res)
+            torch.cuda.synchronize()
+            check(torch.equal(s, ps), f"LN {name}: the sum differs from the chain's")
+            # within 1e-6 of the chain, or, where a row's values lie close
+            # together (C 4: the centring cancels), as close to fp64 as it
+            err, plain_err = (_ln_err64(torch, t, x, w, b, eps, res) for t in (y, py))
+            gap = _ln_gap(torch, y, py)
+            check(gap <= 1e-6 or err <= 2 * plain_err,
+                  f"LN {name}: normed gap {gap}, from fp64 {err} (the chain {plain_err})")
+            y2, _ = lnk.layer_norm_fused(x, w, b, eps, res)
+            check(torch.equal(y, y2), f"LN {name}: two calls differ")
+            results[name] = dict(gap=gap, differ_share=float((y != py).float().mean()),
+                                 fp64_err=err, plain_fp64_err=plain_err,
+                                 plan=plan._asdict(),
+                                 dtype="bf16" if x.dtype == bf else "fp32",
+                                 occupancy=lnk.occupancy(plan, x.dtype))
+        refused = {
+            "bf16_37": rnd((9, 37), bf), "fp32_1023": rnd((7, 1023), f32),
+            "bf16_1288": rnd((5, 1288), bf), "fp16_256": rnd((4, 256), torch.float16),
+            "channel_strided": rnd((4, 256, 64), f32).transpose(1, 2),
+            "two_bytes_off": rnd((64, 264), bf)[:, 1:257],
+        }
+        for name, x in refused.items():
+            w, b = affine(x.shape[-1])
+            try:
+                lnk.layer_norm_fused(x, w, b, 1e-6)
+            except ValueError as e:
+                check("no kernel instance" in str(e), f"LN {name}: {e}")
+            else:
+                check(False, f"LN {name}: launched for an input without an instance")
+        for name in ("encoder_norm1", "encoder_norm2_residual", "focal_norm1"):
+            x, res, eps = cases[name]
+            w, b = affine(x.shape[-1])
+            rows, c = x.numel() // x.shape[-1], x.shape[-1]
+            r = results[name]
+
+            # F.layer_norm takes weights only in the input's dtype on the card:
+            # bf16 rounds the affine's weight and bias, which the chain keeps fp32
+            lw, lb = w.to(x.dtype), b.to(x.dtype)
+
+            def library():
+                return F.layer_norm(x if res is None else x + res, (c,), lw, lb, eps)
+
+            lib_y = library()
+            r["library_gap"] = _ln_gap(torch, lib_y, lnk.layer_norm_plain(x, w, b, eps, res)[0])
+            r["ms"] = device_ms(torch, lambda: lnk.layer_norm_fused(x, w, b, eps, res))
+            r["plain_ms"] = device_ms(torch, lambda: lnk.layer_norm_plain(x, w, b, eps, res),
+                                      calls=5)
+            r["library_ms"] = device_ms(torch, library)
+            r["bound_ms"] = _ln_bound(rows, c, x.element_size(), res is not None)
+            log(f"[LN] {name} {tuple(x.shape)} {x.dtype}: kernel {r['ms']:.4f} ms device, "
+                f"plain chain {r['plain_ms']:.4f}, F.layer_norm{'' if res is None else ' + add'} "
+                f"{r['library_ms']:.4f} (gap {r['library_gap']:.3g}), bound "
+                f"{r['bound_ms']:.4f} (bytes, {r['bound_ms'] / r['ms']:.1%}); "
+                f"{json.dumps(r['occupancy'])}")
+    log(f"[LN] inputs without an instance raise: {sorted(refused)}")
+    for name, r in results.items():
+        log(f"[LN] {name}: gap {r['gap']}, differ {r['differ_share']:.3g}, from fp64 "
+            f"{r['fp64_err']:.3g} (the chain {r['plain_fp64_err']:.3g}), plan "
+            f"{json.dumps(r['plan'])}")
+    OCCUPANCY["layer_norm"] = {n: r["occupancy"] for n, r in results.items()}
+    main = results["encoder_norm2_residual"]
+    kernel = dict(name="layer_norm", route="cuda", source="vosesam_tpu_torch/csrc/layer_norm.cu",
+                  replaces=None,
+                  max_gap=max(r["gap"] for r in results.values()),
+                  differ_share=main["differ_share"],
+                  ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                  bound_by="bytes", library_ms=main["library_ms"],
+                  library="F.layer_norm after the plain add, weights in x's dtype",
+                  norm1_ms=results["encoder_norm1"]["ms"],
+                  norm1_plain_ms=results["encoder_norm1"]["plain_ms"],
+                  norm1_library_ms=results["encoder_norm1"]["library_ms"],
+                  norm1_bound_ms=results["encoder_norm1"]["bound_ms"],
+                  focal_ms=results["focal_norm1"]["ms"],
+                  focal_plain_ms=results["focal_norm1"]["plain_ms"],
+                  focal_library_ms=results["focal_norm1"]["library_ms"],
+                  focal_bound_ms=results["focal_norm1"]["bound_ms"],
+                  timed_by="torch.profiler device time",
+                  shape="x (8, 64, 64, 1280) bf16 + the window_unpartition residual")
+    lnk.reset_counts()
+    return kernel, results
+
+
 # ----------------------------------------------------- B7 (bin-scan probe)
 
 BINSCAN_TOL = 1e-5   # fused multiply-adds against rounded products, <= 18 terms of O(1)
@@ -1648,9 +1817,11 @@ def _main_cfg(dtype: str, rect: bool = True, kernels: bool = True, gate: bool = 
 
 def _reset_all():
     from vosesam_tpu_torch.ops.kernels import flash_attention as fa
+    from vosesam_tpu_torch.ops.kernels import layer_norm as lnk
     from vosesam_tpu_torch.ops.kernels import memory_read as mr
     from vosesam_tpu_torch.ops.kernels import window_attention as wa
 
+    lnk.reset_counts()
     fa.reset_counts()
     mr.reset_counts()
     wa.reset_counts()
@@ -1686,6 +1857,7 @@ def phase_main_path(torch, n_frames: int = 12, n_chunked: int = 25, n_square: in
     from vosesam_tpu_torch.inference.refinement import masks_from_prob, refine_masks, \
         xmem_object_scores
     from vosesam_tpu_torch.models.sam import predictor
+    from vosesam_tpu_torch.ops.kernels import layer_norm as lnk
     from vosesam_tpu_torch.pipeline.track_anything import TrackingAnything
 
     h, w = 480, 854
@@ -1713,7 +1885,7 @@ def phase_main_path(torch, n_frames: int = 12, n_chunked: int = 25, n_square: in
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = _read_all()
+        counts = dict(_read_all(), layer_norm=lnk.COUNTS["layer_norm"])
         kept = ta.xmem.sam_kept
         check(kept is not None and tuple(kept.shape) == (2,), f"{name}: no refinement record")
         kept = kept.cpu().numpy()
@@ -1726,6 +1898,9 @@ def phase_main_path(torch, n_frames: int = 12, n_chunked: int = 25, n_square: in
             check(counts[wk] == want, f"{name}: {counts[wk]} {wk} launches, expected {want}")
         check(counts["plain"] == 0, f"{name}: {counts['plain']} plain calls on the main path")
         check(counts["fused_memory_read_shared"] > 0, f"{name}: B1 never launched")
+        check(counts["layer_norm"] >= 64 * n_encodes, f"{name}: {counts['layer_norm']} "
+              f"LayerNorm launches for {n_encodes} encodes of 32 blocks")
+        check(lnk.COUNTS["plain"] == 0, f"{name}: {lnk.COUNTS['plain']} plain LayerNorms")
         runs[name] = dict(frames=len(out[0]), launches=counts, wall_s=wall,
                           ms_per_frame=wall * 1e3 / len(out[0]),
                           peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -3798,6 +3973,7 @@ def main() -> int:
         b6_bwd, record["deform_backward_cases"] = phase_deform_backward(torch)
         b7, record["binscan_probe"] = phase_binscan_probe(torch)
         record["grad_refusal"] = phase_grad_refusal(torch)
+        ln, record["layer_norm_cases"] = phase_layer_norm_kernel(torch)
         torch.cuda.empty_cache()
         counts, record["e2e"] = phase_end_to_end(torch)
         record["rollout_fp32"] = phase_kernel_vs_plain_rollout(torch)
@@ -3850,7 +4026,10 @@ def main() -> int:
         # B7 is a probe on no product path: its launches are those of its own
         # entry point's run in phase 2e, counted from 0 there
         check(b7["launches"] > 0, "binscan_probe never launched in its probe run")
-        kernels.extend([b6, b6_bwd, b7])
+        # the LayerNorm: the sum over phase 5's runs, each counted from 0
+        ln["launches"] = sum(r["launches"]["layer_norm"] for r in record["main_path"].values())
+        check(ln["launches"] > 0, "layer_norm never launched on the main path")
+        kernels.extend([b6, b6_bwd, b7, ln])
         record["seconds"] = time.time() - t_start
         if args.profile:
             record["profile"] = phase_profile(torch)

@@ -12,6 +12,12 @@ key-encoder graphs use it too). With grad enabled nothing is kept or read:
 training sees the call-time graph. `PARAM_CACHE_COUNTS` counts hits, misses
 (builds) and those bypasses.
 
+`layer_norm` runs the hand-written kernel of `ops/kernels/layer_norm.py`
+for every CUDA tensor outside autograd, with the residual add before it
+when given one, and raises for an input the kernel has no instance for; the
+plain fp32 chain runs on the CPU and where autograd wants a graph (the
+inpainter's trainer), as the kernel has no backward.
+
 Inside the models activations are NCHW, PyTorch's layout; the models' public
 functions take and return the JAX package's channel-last layout.
 
@@ -22,12 +28,14 @@ functions take and return the JAX package's channel-last layout.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from vosesam_tpu_torch.ops.kernels import layer_norm as lnk
 
 
 class Conv2d(nn.Conv2d):
@@ -143,17 +151,37 @@ def conv_transpose2d(x: torch.Tensor, conv: nn.ConvTranspose2d) -> torch.Tensor:
     return F.conv_transpose2d(x, w, b, conv.stride, conv.padding)
 
 
-def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-6) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-6,
+               residual: Optional[torch.Tensor] = None):
     """LayerNorm over the last axis computed in fp32 and cast back
     (`layers.py:137-141`; eps 1e-6 by default, as the JAX package; the
-    E2FGVI generator's focal blocks pass the published 1e-5)."""
+    E2FGVI generator's focal blocks pass the published 1e-5). With
+    `residual` it normalises x + residual, rounded to the activations' dtype
+    as the sum is, and returns (normed, sum).
+
+    On the card one hand-written kernel computes both, and an input it has
+    no instance for raises ValueError (`ops/kernels/layer_norm.layout`
+    says which); the plain chain runs on the CPU, and where grad mode is on
+    and a tensor requires grad."""
     w, b = _derived(ln, (x.device,), (ln.weight, ln.bias),
-                    lambda: (ln.weight.float(), ln.bias.float()))
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * w + b).to(x.dtype)
+                    lambda: lnk.affine(ln.weight, ln.bias))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, residual, w, b)):
+        y, s = lnk.layer_norm_plain(x, w, b, eps, residual)
+    else:
+        y, s = lnk.layer_norm_fused(x, w, b, eps, residual)
+    return y if residual is None else (y, s)
+
+
+def layer_norm_chw(x: torch.Tensor, ln: nn.LayerNorm, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the channel axis of NCHW x (the official LayerNorm2d).
+    On the card the channel-last view is copied dense first, as the kernel
+    takes only a dense channel axis; on the CPU the chain runs on the view,
+    as it always has."""
+    y = x.permute(0, 2, 3, 1)
+    if y.device.type != "cpu":
+        y = y.contiguous()
+    return layer_norm(y, ln, eps).permute(0, 3, 1, 2)
 
 
 def gelu_fast(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,11 @@ the rel-pos bias folded in as extra lanes, fp32 softmax, cast to v's dtype,
 matmul; "xla" keeps fp32 scores and a broadcast bias add. As in JAX, a
 frame that is a single window takes the "xla" path whatever the impl.
 
+Each block's two LayerNorms go through `layers.layer_norm`, the second
+with the attention's residual added first (`residual=`, which returns the
+normed tensor and the residual stream); on the card each is one launch of
+`ops/kernels/layer_norm.py`'s kernel, 64 an encode.
+
 An encoder sharded by `parallel/mesh.py:shard_sam_params_tp` holds a
 slice of each block's heads and MLP width: its attention and kernels run
 on the local heads, and proj and lin2 are summed over the model group.
@@ -249,7 +254,6 @@ def window_unpartition(x: torch.Tensor, wsz: int, pad_hw, hw) -> torch.Tensor:
 
 
 def _block(x: torch.Tensor, blk: _Block, cfg: SAMConfig) -> torch.Tensor:
-    shortcut = x
     y = layer_norm(x, blk.norm1)
     if blk.window > 0:
         y, pad_hw = window_partition(y, blk.window)
@@ -258,17 +262,21 @@ def _block(x: torch.Tensor, blk: _Block, cfg: SAMConfig) -> torch.Tensor:
         y = window_unpartition(y, blk.window, pad_hw, (x.shape[1], x.shape[2]))
     else:
         y = _attention(y, blk.attn, (x.shape[1], x.shape[2]), True, cfg)
-    x = shortcut + y
-    y = layer_norm(x, blk.norm2)
+    y, x = layer_norm(x, blk.norm2, residual=y)
     return x + _row_parallel(gelu_fast(linear(y, blk.mlp.lin1)), blk.mlp.lin2,
                              blk.mlp.tp_group)
 
 
 def _conv_hwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A convolution of channel-last x, dense channel-last out. The backend
+    picks the output's layout from the input's (a preprocessed frame that
+    needed no padding comes NCHW in memory); the patch embedding's layout is
+    the whole residual stream's, and the blocks' LayerNorm kernel takes
+    only a dense channel axis."""
     w = conv.weight.to(x.dtype)
     b = None if conv.bias is None else conv.bias.to(x.dtype)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, b, conv.stride, conv.padding)
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def vit_encode(enc: ImageEncoderViT, x: torch.Tensor, return_interm: bool = False):

@@ -21,7 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vosesam_tpu_torch.config import SAMConfig
-from vosesam_tpu_torch.models.layers import conv2d, conv_transpose2d, layer_norm, linear
+from vosesam_tpu_torch.models.layers import (conv2d, conv_transpose2d, layer_norm,
+                                             layer_norm_chw, linear)
 
 NUM_MASK_TOKENS = 4  # 1 primary + 3 multimask
 
@@ -165,13 +166,9 @@ def two_way_transformer(t: _TwoWayTransformer, keys, key_pe, point_embedding):
     return queries, keys
 
 
-def _ln_chw(y, ln):
-    return layer_norm(y.permute(0, 2, 3, 1), ln).permute(0, 3, 1, 2)
-
-
 def _convt_ln_gelu_convt(x, seq: nn.Sequential):
     """(N, C, h, w) -> (N, C', 4h, 4w): ConvT-LN-GELU-ConvT."""
-    y = F.gelu(_ln_chw(conv_transpose2d(x, seq[0]), seq[1]))
+    y = F.gelu(layer_norm_chw(conv_transpose2d(x, seq[0]), seq[1]))
     return conv_transpose2d(y, seq[3])
 
 
@@ -205,7 +202,7 @@ def decode_masks(
 
     src_img = src_out.reshape(b, h, w, c).permute(0, 3, 1, 2)
     up = dec.output_upscaling
-    upscaled = F.gelu(_ln_chw(conv_transpose2d(src_img, up[0]), up[1]))
+    upscaled = F.gelu(layer_norm_chw(conv_transpose2d(src_img, up[0]), up[1]))
     upscaled = F.gelu(conv_transpose2d(upscaled, up[3]))               # (B, C/8, 4h, 4w)
 
     hyper = [_mlp(mask_tokens_out[:, i], dec.output_hypernetworks_mlps[i])
@@ -226,7 +223,7 @@ def decode_masks(
                    + _convt_ln_gelu_convt(interm_vit.permute(0, 3, 1, 2),
                                           dec.compress_vit_feat))       # (F, C/8, 4h, 4w)
         mf = dec.embedding_maskfeature
-        up_hq = F.gelu(_ln_chw(conv2d(upscaled, mf[0]), mf[1]))
+        up_hq = F.gelu(layer_norm_chw(conv2d(upscaled, mf[0]), mf[1]))
         up_hq = conv2d(up_hq, mf[3]) + hq_feat.index_select(0, frame_of)
         mask_hq = torch.einsum("bc,bcp->bp", hyper_in[:, NUM_MASK_TOKENS].float(),
                                up_hq.reshape(b, uc, uh * uw).float())

@@ -18,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vosesam_tpu_torch.config import SAMConfig
-from vosesam_tpu_torch.models.layers import conv2d, layer_norm
+from vosesam_tpu_torch.models.layers import conv2d, layer_norm_chw
 
 
 class _PositionEmbeddingRandom(nn.Module):
@@ -78,13 +78,9 @@ def encode_mask(pe: PromptEncoder, mask: torch.Tensor) -> torch.Tensor:
     """mask (B, 4h, 4w) logits -> (B, h, w, 256) dense embeddings (official
     mask_downscaling: conv-LN-GELU twice, then a 1x1 conv)."""
     md = pe.mask_downscaling
-
-    def ln_chw(y, ln):
-        return layer_norm(y.permute(0, 2, 3, 1), ln).permute(0, 3, 1, 2)
-
     y = mask[:, None]
-    y = F.gelu(ln_chw(conv2d(y, md[0]), md[1]))
-    y = F.gelu(ln_chw(conv2d(y, md[3]), md[4]))
+    y = F.gelu(layer_norm_chw(conv2d(y, md[0]), md[1]))
+    y = F.gelu(layer_norm_chw(conv2d(y, md[3]), md[4]))
     return conv2d(y, md[6]).permute(0, 2, 3, 1)
 
 

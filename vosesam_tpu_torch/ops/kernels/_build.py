@@ -33,6 +33,7 @@ SOURCES: Dict[str, str] = {
     "window_attention": "window_attention.cu",
     "deform_align": "deform_align.cu",
     "binscan_probe": "binscan_probe.cu",
+    "layer_norm": "layer_norm.cu",
 }
 
 NVCC_FLAGS = (

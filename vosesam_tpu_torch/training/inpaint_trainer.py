@@ -16,7 +16,9 @@ the detached composite. Both optimizers are optax's `adam(1e-4, b1=0,
 b2=0.99)` in torch arithmetic (`trainer.adam_update`); u and v are buffers,
 with no gradient and no Adam update. The networks are trained in place.
 On the card the generator's deformable alignments run the B6 kernel forward
-(again under remat's recompute) and its backward kernel.
+(again under remat's recompute) and its backward kernel. Its focal blocks'
+LayerNorms run the plain fp32 chain here: `models/layers.layer_norm` takes
+its kernel, which has no backward, only where no tensor requires grad.
 """
 
 from __future__ import annotations
